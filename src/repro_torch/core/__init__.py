@@ -1,0 +1,11 @@
+from repro_torch.core import (
+    agg_engine,
+    aggregation,
+    cost_model,
+    sharding,
+    topology,
+    wire_codec,
+)
+
+__all__ = ["agg_engine", "aggregation", "cost_model", "sharding", "topology",
+           "wire_codec"]
