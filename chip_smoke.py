@@ -8,30 +8,45 @@ Run from the repository root, with no arguments::
 Phases, each fatal on failure:
 
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device is an error;
-2. build the fold kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
-3. the kernel against its plain PyTorch version on the card, bit for bit:
-   every dependency wave of the three topologies at the paper's VGG-16
-   width (N = 20 clients, M = 4 shards), then bf16 inputs, the weighted
-   forms, N = 1, ragged and misaligned views, subnormals and a mixed
-   multi-node table;
+2. build the three kernel sources of ``src/repro_torch/kernels/csrc`` with
+   nvcc, one process each, all started together;
+3. the fold kernel against its plain PyTorch version on the card, bit for
+   bit: every dependency wave of the three topologies at the paper's
+   VGG-16 width (N = 20 clients, M = 4 shards), then bf16 inputs, the
+   weighted forms, N = 1, ragged and misaligned views, subnormals and a
+   mixed multi-node table; then the codec kernels (quantize, dequantize,
+   top-k) against theirs, bit for bit: each VGG-16 shard and the whole
+   gradient, n = 0, a short and a misaligned vector, an all-zero tile, a
+   tile with fewer than k nonzeros, exact .5 quotients, subnormals and
+   values near the f32 maximum;
 4. the reference's pinned smoke keys (``benchmarks/expected_smoke.json``,
    read as JSON) recomputed on the card: 168 keys across topology × engine
-   × schedule and the ``readahead_k`` sweeps; then every engine at N = 12
-   on the card against the CPU;
+   × schedule and the ``readahead_k`` sweeps, and the 36 wire-codec keys;
+   then every engine at N = 12 on the card against the CPU, under every
+   codec;
 5. full width: GradsSharding, λ-FL and LIFL rounds through
    ``FederatedSession(..., engine="batched", device="cuda")`` on 20 VGG-16
    gradients made on the card from a seed; the launch counter must grow,
    each mean must equal the plain fold bit for bit, and a 1 M-element
    slice must equal a numpy fold on the host. Then the kernel's time per
    wave (CUDA events, median of 7 after a warm-up) beside its bound, the
-   plain version's time and ``torch.mean`` over a pre-stacked tensor.
+   plain version's time and ``torch.mean`` over a pre-stacked tensor;
+6. full width under the ``qsgd8`` and ``topk`` wire codecs, each topology:
+   the codec kernels' launch counts must equal one encode and one decode
+   per client contribution, each mean must equal the plain pipeline (plain
+   encode, decode and fold) on the card bit for bit and a numpy mirror on
+   a 256-tile slice, and ``codec_error`` the plain pipeline's. Then each
+   codec kernel's time on one VGG-16 shard beside its bound, its plain
+   version's and, for dequantize, one ``torch.mul``.
 
-The last lines are a JSON object of per-wave timings, a JSON ``kernels``
+The last lines are a JSON object of timings and walls, a JSON ``kernels``
 line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -48,6 +63,13 @@ ROUNDS = 3               # full-width rounds per topology (fresh sessions)
 REPS = 7                 # timed launches per wave, after a warm-up
 SLICE = 1_000_000        # host numpy check of the round's mean
 TOPOLOGIES = ("gradssharding", "lambda_fl", "lifl")
+SOURCES = ("fedavg_stream", "quantize", "topk_sparsify")
+LOSSY = ("fp16", "qsgd8", "topk")
+FULL_WIDTH_CODECS = ("qsgd8", "topk")    # the codecs with kernels
+CODEC_ROUNDS = 2         # full-width rounds per topology and codec
+TILE = 4096              # codec tile: 32 rows x 128 lanes
+TOPK_K = 128             # TopkCodec.k_per_block
+CODEC_SLICE = 256 * TILE  # host numpy check of a codec round's mean
 
 # Published peaks (NVIDIA data sheets, dense, outside the tensor cores):
 # device-memory bytes/s, f32 and f64 operations/s, keyed by the variant
@@ -193,13 +215,16 @@ def phase_card():
 
 def phase_build(build):
     t0 = time.perf_counter()
-    build.load("fedavg_stream")
-    secs, log = build.BUILD_INFO["fedavg_stream"]
-    print(f"[2] built fedavg_stream.cu in {secs:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"    ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build.load, SOURCES))
+    print(f"[2] built {len(SOURCES)} sources in parallel in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in SOURCES:
+        secs, log = build.BUILD_INFO[name]
+        print(f"    {name}.cu: nvcc {secs:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"    ptxas: {line.strip()}")
 
 
 def phase_kernel_vs_plain(fs, grads, cm, plan_uniform):
@@ -262,6 +287,88 @@ def phase_kernel_vs_plain(fs, grads, cm, plan_uniform):
     return max_err
 
 
+def phase_codec_kernels(q, tk, grads, plan_uniform):
+    """Quantize, dequantize and top-k against their plain versions on the
+    card, bit for bit: the main path's shapes, then edge cases."""
+    import torch
+    errs = {"quantize": 0.0, "dequantize": 0.0, "topk_sparsify": 0.0}
+    cases = 0
+
+    def same(label, kernel, got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{kernel} in {label}: {got.dtype} {tuple(got.shape)} vs "
+                 f"plain {want.dtype} {tuple(want.shape)}")
+        diff = got != want
+        if bool(diff.any()):
+            err = float((got[diff].double() - want[diff].double()).abs()
+                        .max())
+            errs[kernel] = max(errs[kernel], err)
+        as_bits = (lambda t: t) if got.dtype == torch.int8 else \
+            (lambda t: t.view(torch.int32))
+        if not torch.equal(as_bits(got), as_bits(want)):
+            fail(f"{kernel} != plain in {label} (max abs err "
+                 f"{errs[kernel]})")
+
+    def check(label, x, ranges=()):
+        nonlocal cases
+        n = int(x.shape[0])
+        codes, scales = q.quantize(x)
+        plain_codes, plain_scales = q.quantize_plain(x)
+        same(label, "quantize", codes, plain_codes)
+        same(label, "quantize", scales, plain_scales)
+        for a, b in ((0, n),) + tuple(ranges):
+            same(f"{label} [{a}, {b})", "dequantize",
+                 q.dequantize(codes, scales, a, b),
+                 q.dequantize_plain(plain_codes, plain_scales, a, b))
+        same(label, "topk_sparsify", tk.topk_sparsify(x, TOPK_K),
+             tk.topk_plain(x, TOPK_K))
+        torch.cuda.synchronize()
+        cases += 1
+
+    g = grads[0]
+    L = int(g.shape[0])
+    for j, ((a, b),) in enumerate(plan_uniform(L, N_SHARDS).segments):
+        n = b - a
+        check(f"VGG-16 shard {j} ({n} elements, ragged last tile of "
+              f"{n % TILE})", g[a:b],
+              ((1, TILE + 1), (TILE - 1, 3 * TILE + 7), (n - 5_000, n)))
+    check("whole VGG-16 gradient", g, ((L - TILE - 3, L),))
+
+    before = (q.QUANTIZE_LAUNCHES, q.DEQUANTIZE_LAUNCHES, tk.LAUNCHES)
+    check("n = 0", torch.empty(0, device="cuda"))
+    if (q.QUANTIZE_LAUNCHES, q.DEQUANTIZE_LAUNCHES, tk.LAUNCHES) != before:
+        fail("an empty vector launched a codec kernel")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rnd = lambda n: torch.randn(n, generator=gen, device="cuda")
+    check("n < 4096", rnd(1_000), ((7, 993),))
+    base = rnd(100_003)
+    mis = base[3:]
+    if mis.data_ptr() % 16 == 0:
+        fail("the misaligned case has a 16-byte aligned view")
+    check("misaligned start", mis, ((5, 50_001),))
+    x = rnd(4 * TILE + 17)
+    x[TILE:2 * TILE] = 0.0                        # an all-zero tile
+    x[2 * TILE:3 * TILE] = 0.0                    # fewer than k nonzeros
+    x[2 * TILE:3 * TILE:64] = rnd(TILE // 64)
+    x[3 * TILE:3 * TILE + 100] = -0.0
+    check("all-zero tile, fewer than k nonzeros, -0.0", x)
+    ramp = torch.arange(2 * TILE, device="cuda", dtype=torch.float32)
+    half = torch.empty(2 * TILE, device="cuda")
+    half[:TILE] = (ramp[:TILE] % 254) - 126.5     # scale 1: x.5 quotients
+    half[0] = 127.0
+    half[TILE:] = 2 * ((ramp[TILE:] % 127) - 63) + 1   # scale 2: odd / 2
+    half[TILE] = 254.0
+    check("exact .5 quotients", half)
+    check("subnormals", rnd(3 * TILE + 5) * 1e-39)
+    big = (torch.rand(2 * TILE + 9, generator=gen, device="cuda") * 0.4e38
+           + 3.0e38) * torch.sign(rnd(2 * TILE + 9))
+    big[5] = torch.finfo(torch.float32).max
+    check("near the f32 maximum", big)
+    print(f"[3] codec kernels == plain, bit for bit, in {cases} cases "
+          f"(max abs err {errs})")
+    return errs
+
+
 def phase_pinned(fs, smoke, FederatedSession):
     fs.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -294,6 +401,33 @@ def phase_pinned(fs, smoke, FederatedSession):
                      f"{on_cpu}")
     print(f"    N=12: {len(TOPOLOGIES) * len(smoke.ENGINES)} topology × "
           f"engine rounds on cuda equal the CPU's, hashes included")
+
+    t0 = time.perf_counter()
+    got_codec = smoke.codec_invariants(
+        "cuda", raw_hashes=smoke.gradssharding_hashes(got))
+    expected = smoke.expected_invariants(groups=("codec",))
+    bad = smoke.mismatches(got_codec, expected)
+    if len(expected) != 36 or bad:
+        fail(f"{len(bad)} of {len(expected)} pinned codec keys differ on "
+             f"the card:\n" + "\n".join(bad[:20]))
+    print(f"    pinned codec keys on cuda: {len(expected)}/{len(expected)} "
+          f"equal expected_smoke.json ({time.perf_counter() - t0:.1f} s)")
+    for codec in LOSSY:
+        for topology in TOPOLOGIES:
+            for engine in smoke.ENGINES:
+                kw = dict(topology=topology, n_shards=smoke.N_SHARDS_2,
+                          engine=engine, schedule="pipelined", readahead_k=2,
+                          upload=smoke.UPLOAD, codec=codec)
+                card = FederatedSession(device="cuda", **kw).round(grads)
+                cpu = FederatedSession(device="cpu", **kw).round(grads)
+                on_card = (smoke.record(card), card.codec_error)
+                on_cpu = (smoke.record(cpu), cpu.codec_error)
+                if on_card != on_cpu:
+                    fail(f"N=12 {codec}/{topology}/{engine}: card {on_card} "
+                         f"!= cpu {on_cpu}")
+    print(f"    N=12: {len(LOSSY) * len(TOPOLOGIES) * len(smoke.ENGINES)} "
+          f"codec × topology × engine rounds on cuda equal the CPU's, "
+          f"hashes and codec_error included")
 
 
 def phase_full_width(fs, grads, cm, plan_uniform, FederatedSession, peak):
@@ -367,6 +501,179 @@ def phase_full_width(fs, grads, cm, plan_uniform, FederatedSession, peak):
     return launches, per_topo, walls, rows
 
 
+def codec_pieces(topology: str, L: int, plan_uniform) -> list:
+    """The element ranges a client encodes: its M shards under
+    GradsSharding, its whole gradient under λ-FL and LIFL."""
+    if topology == "gradssharding":
+        return [seg for (seg,) in plan_uniform(L, N_SHARDS).segments]
+    return [(0, L)]
+
+
+def plain_roundtrip(q, tk, codec: str, g, pieces):
+    """A client's gradient through the plain encode and decode, piece by
+    piece. Top-k's sparse payload drops zeros, -0.0 included, so its
+    decode holds +0.0 wherever the dense mask is zero."""
+    import torch
+    outs = []
+    for a, b in pieces:
+        if codec == "qsgd8":
+            outs.append(q.dequantize_plain(*q.quantize_plain(g[a:b])))
+        else:
+            dense = tk.topk_plain(g[a:b], TOPK_K)
+            outs.append(torch.where(dense != 0, dense,
+                                    torch.zeros((), device=dense.device)))
+    return torch.cat(outs)
+
+
+def numpy_roundtrip(codec: str, x):
+    """The reference's codec arithmetic, inline in numpy, over whole tiles
+    of ``x`` (f32, a multiple of 4096 long)."""
+    import numpy as np
+    tiles = x.reshape(-1, TILE)
+    ax = np.abs(tiles)
+    if codec == "qsgd8":
+        amax = ax.max(axis=1)
+        qmax = np.float32(127.0)
+        scales = np.where(amax > 0, amax / qmax,
+                          np.float32(1.0)).astype(np.float32)
+        codes = np.clip(np.rint(tiles / scales[:, None]), -qmax,
+                        qmax).astype(np.int8)
+        return (codes.astype(np.float32) * scales[:, None]).reshape(-1)
+    lo = np.zeros(tiles.shape[0], np.float32)
+    hi = ax.max(axis=1) + np.float32(1e-12)
+    for _ in range(24):
+        mid = np.float32(0.5) * (lo + hi)
+        keep = (ax >= mid[:, None]).sum(axis=1) >= TOPK_K
+        lo = np.where(keep, mid, lo)
+        hi = np.where(keep, hi, mid)
+    dense = np.where(ax >= lo[:, None], tiles, np.float32(0.0))
+    return np.where(dense != 0, dense, np.float32(0.0)).reshape(-1)
+
+
+def codec_launches(q, tk) -> dict:
+    return {"quantize": q.QUANTIZE_LAUNCHES,
+            "dequantize": q.DEQUANTIZE_LAUNCHES,
+            "topk_sparsify": tk.LAUNCHES}
+
+
+def phase_full_width_codecs(fs, q, tk, grads, cm, plan_uniform,
+                            FederatedSession):
+    """Full-width rounds of each topology under qsgd8 and topk."""
+    import numpy as np
+    import torch
+    plain = lambda nodes: [fs.fedavg_stream_plain(i, w) for i, w in nodes]
+    L = int(grads[0].shape[0])
+    host = [g[:CODEC_SLICE].cpu().numpy() for g in grads]
+    raw_mean = fs.fedavg_stream_plain(grads)       # codec_error's reference
+    walls, per_round = {}, {}
+    # the main path starts here
+    q.QUANTIZE_LAUNCHES = q.DEQUANTIZE_LAUNCHES = tk.LAUNCHES = 0
+    for codec in FULL_WIDTH_CODECS:
+        host_dec = [numpy_roundtrip(codec, h) for h in host]
+        for topology in TOPOLOGIES:
+            pieces = codec_pieces(topology, L, plan_uniform)
+            decoded = [plain_roundtrip(q, tk, codec, g, pieces)
+                       for g in grads]
+            _, want = waves(decoded, topology, plain, cm, plan_uniform)
+            del decoded
+            want_err = float(torch.max(torch.abs(want - raw_mean)))
+            _, want_host = waves(host_dec, topology, numpy_fold, cm,
+                                 plan_uniform)
+            n_enc = len(grads) * len(pieces)
+            expect = {"quantize": n_enc, "dequantize": n_enc,
+                      "topk_sparsify": 0} if codec == "qsgd8" else \
+                {"quantize": 0, "dequantize": 0, "topk_sparsify": n_enc}
+            key = f"{topology}/{codec}"
+            walls[key] = []
+            for _ in range(CODEC_ROUNDS):
+                before, folds = codec_launches(q, tk), fs.LAUNCHES
+                session = FederatedSession(
+                    topology=topology, n_shards=N_SHARDS, engine="batched",
+                    codec=codec, device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = session.round(grads)
+                torch.cuda.synchronize()
+                walls[key].append(time.perf_counter() - t0)
+                after = codec_launches(q, tk)
+                grew = {k: after[k] - before[k] for k in after}
+                if grew != expect or fs.LAUNCHES <= folds:
+                    fail(f"{key}: launches {grew} (fold "
+                         f"{fs.LAUNCHES - folds}), expected {expect} and "
+                         f"at least one fold")
+                avg = result.avg_flat
+                if avg.device.type != "cuda" or avg.shape != (L,) \
+                        or not bool(torch.isfinite(avg).all()):
+                    fail(f"{key}: avg_flat is not a finite ({L},) CUDA "
+                         f"tensor")
+                if not bits_equal(avg, want):
+                    fail(f"{key}: avg_flat != the plain pipeline on the card")
+                if not np.array_equal(
+                        avg[:CODEC_SLICE].cpu().numpy().view(np.int32),
+                        want_host.view(np.int32)):
+                    fail(f"{key}: avg_flat[:{CODEC_SLICE}] != the numpy "
+                         f"mirror")
+                if result.codec_error != want_err:
+                    fail(f"{key}: codec_error {result.codec_error!r} != the "
+                         f"plain pipeline's {want_err!r}")
+                del session, result, avg
+            per_round[key] = expect
+            del want
+            print(f"[6] {key}: rounds "
+                  f"{', '.join(f'{w:.3f}' for w in walls[key])} s host wall, "
+                  f"{expect} codec launches a round; mean == plain pipeline, "
+                  f"[:{CODEC_SLICE}] == numpy mirror, codec_error "
+                  f"{want_err!r}")
+    return codec_launches(q, tk), per_round, walls
+
+
+def phase_codec_timings(q, tk, grads, plan_uniform, peak):
+    """Each codec kernel on one VGG-16 shard (the GradsSharding encode and
+    decode): its time, its plain version's, its bound, and one PyTorch
+    call where one computes the same function."""
+    import torch
+    bw, f32, _ = peak
+    (a, b), = plan_uniform(int(grads[0].shape[0]), N_SHARDS).segments[0]
+    x = grads[0][a:b]
+    n = b - a
+    n_tiles = math.ceil(n / TILE)
+    codes, scales = q.quantize(x)
+    whole = (n // TILE) * TILE
+    # bytes: each input read once, each output written once; operations:
+    # quantize |x|, max, divide, round, two clamps; dequantize a convert
+    # and a multiply; top-k |x|, max, then 24 compare-and-count steps and
+    # a select
+    work = {
+        "quantize": (4 * n + n + 4 * n_tiles, 6 * n,
+                     lambda: q.quantize(x), lambda: q.quantize_plain(x),
+                     None),
+        "dequantize": (n + 4 * n_tiles + 4 * n, 2 * n,
+                       lambda: q.dequantize(codes, scales),
+                       lambda: q.dequantize_plain(codes, scales),
+                       lambda: torch.mul(codes[:whole].view(-1, TILE),
+                                         scales[:whole // TILE, None])),
+        "topk_sparsify": (8 * n, (2 + 2 * 24 + 1) * n,
+                          lambda: tk.topk_sparsify(x, TOPK_K),
+                          lambda: tk.topk_plain(x, TOPK_K), None),
+    }
+    rows = {}
+    for name, (nbytes, ops, kernel, plain, library) in work.items():
+        t_bytes, t_ops = nbytes / bw, ops / f32
+        row = {"elements": n, "bytes": nbytes, "ops": ops,
+               "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": time_ms(library) if library else None}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        lib = f"{row['library_ms']:.3f} ms" if library else "none"
+        print(f"    {name} on one shard ({n} elements): {row['ms']:.3f} ms "
+              f"kernel, {row['plain_ms']:.3f} ms plain, library {lib}, "
+              f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+              f"{100 * row['bound_share']:.1f}% of bound")
+    return rows
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -379,6 +686,8 @@ def main() -> None:
     from repro_torch.core.sharding import plan_uniform
     from repro_torch.kernels import build
     from repro_torch.kernels import fedavg_stream as fs
+    from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import topk_sparsify as tk
     from repro_torch import smoke
 
     phase_build(build)
@@ -386,21 +695,44 @@ def main() -> None:
     grads = [torch.randn(VGG16.params, generator=gen, device="cuda")
              for _ in range(N_CLIENTS)]
     max_err = phase_kernel_vs_plain(fs, grads, cm, plan_uniform)
+    codec_errs = phase_codec_kernels(q, tk, grads, plan_uniform)
     phase_pinned(fs, smoke, FederatedSession)
     launches, per_topo, walls, rows = phase_full_width(
         fs, grads, cm, plan_uniform, FederatedSession, peaks(name))
+    codec_counts, codec_per_round, codec_walls = phase_full_width_codecs(
+        fs, q, tk, grads, cm, plan_uniform, FederatedSession)
+    codec_rows = phase_codec_timings(q, tk, grads, plan_uniform, peaks(name))
 
     head = rows[0]                       # the GradsSharding wave
     print(json.dumps({"waves": rows, "round_walls_s": walls,
-                      "launches_per_topology": per_topo, "card": card}))
-    print(json.dumps({"kernels": [{
+                      "launches_per_topology": per_topo,
+                      "codec_kernels": codec_rows,
+                      "codec_round_walls_s": codec_walls,
+                      "codec_launches_per_round": codec_per_round,
+                      "card": card}))
+    kernels = [{
         "name": "fedavg_stream", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_stream.cu",
         "replaces": "src/repro/kernels/fedavg_stream.py:47",
         "launches": launches, "max_abs_err": max_err,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "equal_plain": True}]}))
+        "library_ms": head["library_ms"], "equal_plain": True}]
+    for name, source, replaces in (
+            ("quantize", "quantize.cu", "src/repro/kernels/quantize.py:33"),
+            ("dequantize", "quantize.cu", "src/repro/kernels/quantize.py:55"),
+            ("topk_sparsify", "topk_sparsify.cu",
+             "src/repro/kernels/topk_sparsify.py:44")):
+        row = codec_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": codec_counts[name],
+            "max_abs_err": codec_errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "equal_plain": True})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

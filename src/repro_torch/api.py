@@ -93,7 +93,7 @@ class SessionConfig:
     # avg_flat — is unchanged); None defers to REPRO_AGG_READAHEAD / 1
     readahead_k: int | None = None
     # on-the-wire representation of client contributions (repro_torch.core
-    # .wire_codec registry: identity); None defers to
+    # .wire_codec registry: identity, fp16, qsgd8, topk); None defers to
     # REPRO_AGG_CODEC / "identity". Lossy codecs shrink upload bytes, GET
     # latency, billing and the feasibility ceiling, stay deterministic,
     # and report their accuracy cost as AggregationResult.codec_error

@@ -23,7 +23,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+# one lock per source, so that different sources build concurrently
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 #: per source name: (seconds the build took, or 0.0 when loaded from a
 #: previous build; the compiler's output)
 BUILD_INFO: dict[str, tuple[float, str]] = {}
@@ -47,8 +49,11 @@ def library_path(name: str) -> pathlib.Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The compiled library of ``csrc/<name>.cu``, built if needed."""
-    with _LOCK:
+    """The compiled library of ``csrc/<name>.cu``, built if needed. Calls
+    for different sources may run in parallel threads."""
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

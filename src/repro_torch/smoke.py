@@ -7,7 +7,8 @@ billed GB-s, modeled walls, peak memory and a SHA-256 of the averaged
 gradient's bytes (168 keys under ``smoke/{gradssharding,lambda_fl,lifl}``).
 :func:`main_path_invariants` recomputes those keys with this package, on
 any device, under the reference's key names and rounding, so a run can be
-held against the committed file bit for bit.
+held against the committed file bit for bit. :func:`codec_invariants` does
+the same for the wire-codec gate (36 keys under ``smoke/codec``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ N_SHARDS = 4
 N_CLIENTS_2 = 12
 N_SHARDS_2 = 8
 TOPOLOGIES = ("gradssharding", "lambda_fl", "lifl")
+CODECS = ("identity", "fp16", "qsgd8", "topk")
 ENGINES = ("streaming", "batched", "incremental")
 SCHEDULES = ("barrier", "pipelined")
 READAHEAD_KS = (1, 2, 4, 8)
@@ -127,12 +129,66 @@ def main_path_invariants(device: str = "cuda") -> dict:
     return out
 
 
-def expected_invariants(path: str | pathlib.Path = EXPECTED_PATH) -> dict:
-    """The committed keys of the three builtin topologies."""
+def codec_invariants(device: str = "cuda", raw_hashes=None) -> dict:
+    """The 36 ``smoke/codec/*`` keys, computed by the port on ``device``:
+    GradsSharding at N = 8, M = 4, pipelined, ``readahead_k=2``, every
+    engine, each codec. ``identity/matches_raw_grid`` holds the identity
+    hashes against ``raw_hashes``, the GradsSharding hashes of
+    :func:`main_path_invariants` (computed on ``device`` when not given)."""
+    if raw_hashes is None:
+        raw_hashes = gradssharding_hashes(main_path_invariants(device))
+    out: dict = {}
+    grads = smoke_grads()
+    for codec in CODECS:
+        per_engine = set()
+        for engine in ENGINES:
+            session = FederatedSession(
+                topology="gradssharding", n_shards=N_SHARDS, engine=engine,
+                schedule="pipelined", upload=UPLOAD, readahead_k=2,
+                codec=codec, device=device)
+            r = session.round(grads)
+            per_engine.add(avg_hash(r.avg_flat))
+        wire = sum(nb for key, nb in session.store.stats.put_log
+                   if "/avg/" not in key and "/partial/" not in key)
+        model = cm.pipelined_round_cost(
+            "gradssharding", GRAD_ELEMS * 4, N_CLIENTS, N_SHARDS,
+            upload=UPLOAD, readahead_k=2, codec=codec)
+        tag = f"smoke/codec/{codec}"
+        out[f"{tag}/puts"] = r.puts
+        out[f"{tag}/gets"] = r.gets
+        out[f"{tag}/wire_upload_bytes"] = wire
+        out[f"{tag}/billed_gb_s"] = round(
+            sum(rec.billed_gb_s for rec in r.records), 12)
+        out[f"{tag}/wall_s"] = round(r.wall_clock_s, 12)
+        out[f"{tag}/model_wall_s"] = round(model.wall_clock_s, 12)
+        out[f"{tag}/codec_error"] = round(r.codec_error, 12)
+        out[f"{tag}/engine_deterministic"] = len(per_engine) == 1
+        if codec == "identity":
+            out[f"{tag}/matches_raw_grid"] = per_engine <= set(raw_hashes)
+        else:
+            out[f"{tag}/avg_sha256"] = next(iter(per_engine))
+    return out
+
+
+def gradssharding_hashes(main_path: dict) -> set:
+    """The GradsSharding ``avg_sha256`` values of a
+    :func:`main_path_invariants` result over the smoke gradients (the
+    engine × schedule grid and the first ``readahead_k`` sweep): the codec
+    gate's raw grid."""
+    return {v for k, v in main_path.items()
+            if k.startswith("smoke/gradssharding/")
+            and "/readahead2_" not in k and k.endswith("/avg_sha256")}
+
+
+def expected_invariants(path: str | pathlib.Path = EXPECTED_PATH,
+                        groups=TOPOLOGIES) -> dict:
+    """The committed keys under ``smoke/<group>`` for each of ``groups``
+    (default: the three builtin topologies; ``("codec",)`` for the codec
+    gate)."""
     with open(path) as fh:
         pinned = json.load(fh)
     return {k: v for k, v in pinned.items()
-            if k.split("/")[:2] in [["smoke", t] for t in TOPOLOGIES]}
+            if k.split("/")[:2] in [["smoke", g] for g in groups]}
 
 
 def mismatches(got: dict, expected: dict) -> list[str]:

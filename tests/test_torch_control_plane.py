@@ -173,8 +173,10 @@ def test_resolver_env_precedence(monkeypatch):
     assert get_codec().name == "identity"
     assert get_backend().name == "incremental"
     assert get_backend("streaming").name == "streaming"
-    monkeypatch.setenv(knobs.ENV_CODEC, "qsgd8")     # not ported yet
-    with pytest.raises(ValueError, match="qsgd8"):
+    monkeypatch.setenv(knobs.ENV_CODEC, "qsgd8")
+    assert get_codec().name == "qsgd8"
+    monkeypatch.setenv(knobs.ENV_CODEC, "gzip-hope")
+    with pytest.raises(ValueError, match="gzip-hope"):
         get_codec()
     monkeypatch.setenv(knobs.ENV_ENGINE, "host_mesh")
     with pytest.raises(ValueError, match="host_mesh"):

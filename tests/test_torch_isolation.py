@@ -38,6 +38,7 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.smoke\n"
         "import repro_torch.kernels.fedavg_stream, repro_torch.convert\n"
+        "import repro_torch.kernels.ops, repro_torch.core.wire_codec\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")
