@@ -8,7 +8,7 @@ Run from the repository root, with no arguments::
 Phases, each fatal on failure:
 
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device is an error;
-2. build the three kernel sources of ``src/repro_torch/kernels/csrc`` with
+2. build the five kernel sources of ``src/repro_torch/kernels/csrc`` with
    nvcc, one process each, all started together;
 3. the fold kernel against its plain PyTorch version on the card, bit for
    bit: every dependency wave of the three topologies at the paper's
@@ -37,7 +37,27 @@ Phases, each fatal on failure:
    encode, decode and fold) on the card bit for bit and a numpy mirror on
    a 256-tile slice, and ``codec_error`` the plain pipeline's. Then each
    codec kernel's time on one VGG-16 shard beside its bound, its plain
-   version's and, for dequantize, one ``torch.mul``.
+   version's and, for dequantize, one ``torch.mul``;
+7. federated LM at full width (``tinyllama-1.1b``, 1.1 B parameters):
+   (a) the fused-SGD kernel against its plain version bit for bit, on each
+   of the 12 parameter leaves with real gradients of one local step, at a
+   ragged length, on a misaligned view, with n = 0 (no launch) and with
+   bf16 parameters or gradients; the rmsnorm kernel against its plain
+   version at its tolerance (f32: rtol 1e-5, atol 1e-6; bf16: one ulp), on
+   the real (512, 2048) bf16 activations at layer 0's first norm, at
+   d = 64, 2048 and 8192 in f32 and bf16 with a row count that is not a
+   multiple of 8, on an all-zero row and near the f32 maximum; (b) two
+   rounds of ``federated_lm.run`` (N = 4, M = 4, 2 local steps, batch 8,
+   sequence 64, lr 0.05, batched engine, parameters from a seeded
+   generator on the card): rmsnorm launches 45 per forward, fused-SGD 12 per local step,
+   the fold at least once, every loss finite, the second round's mean
+   client loss below the first's, and each round's mean equal to the plain
+   fold of the four client deltas bit for bit; (c) the fused-SGD kernel
+   over one step's 12 leaves and rmsnorm at (512, 2048) bf16 beside their
+   bounds, plain versions and one PyTorch call each, the host walls of a
+   client's local training and of an aggregation round, and the peak
+   device memory; then one local step under ``torch.profiler`` (device
+   time by kernel, the device's idle share).
 
 The last lines are a JSON object of timings and walls, a JSON ``kernels``
 line, and ``{"ok": true, "device": {...}}``.
@@ -45,6 +65,7 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import pathlib
@@ -63,13 +84,22 @@ ROUNDS = 3               # full-width rounds per topology (fresh sessions)
 REPS = 7                 # timed launches per wave, after a warm-up
 SLICE = 1_000_000        # host numpy check of the round's mean
 TOPOLOGIES = ("gradssharding", "lambda_fl", "lifl")
-SOURCES = ("fedavg_stream", "quantize", "topk_sparsify")
+SOURCES = ("fedavg_stream", "quantize", "topk_sparsify", "fused_sgd",
+           "rmsnorm")
 LOSSY = ("fp16", "qsgd8", "topk")
 FULL_WIDTH_CODECS = ("qsgd8", "topk")    # the codecs with kernels
 CODEC_ROUNDS = 2         # full-width rounds per topology and codec
 TILE = 4096              # codec tile: 32 rows x 128 lanes
 TOPK_K = 128             # TopkCodec.k_per_block
 CODEC_SLICE = 256 * TILE  # host numpy check of a codec round's mean
+LM_ARCH = "tinyllama-1.1b"
+# the reference example's settings, but lr 0.05: its lr 0.1 diverges at
+# full width (PERF.md)
+LM_RUN = dict(rounds=2, clients=4, shards=4, local_steps=2, batch=8, seq=64,
+              lr=0.05, engine="batched")
+NORMS_PER_FORWARD = 45   # 2 per layer (ln1, ln2) and the final norm
+RECKONED_PEAK_GB = 46.0  # params, a client's copy, grads, velocity, bf16
+                         # casts, delta tree, 4 flat deltas, the mean
 
 # Published peaks (NVIDIA data sheets, dense, outside the tensor cores):
 # device-memory bytes/s, f32 and f64 operations/s, keyed by the variant
@@ -674,6 +704,311 @@ def phase_codec_timings(q, tk, grads, plan_uniform, peak):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: federated LM training at full width
+# ---------------------------------------------------------------------------
+
+def bf16_ulps(a, b) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors."""
+    import torch
+
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def phase_lm_kernels(sgd, rn, layers, models, data, cfg, params):
+    """(a) fused-SGD bit for bit and rmsnorm at its tolerance, on the card,
+    at the path's shapes and on edge cases. Returns the real gradients of
+    one local step (reused for the timings) and the largest errors."""
+    import torch
+    from repro_torch.launch.federated_lm import MOMENTUM
+    batch = data.batch(0, 0, LM_RUN["batch"], device="cuda")
+    local = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+    loss, _ = models.loss_fn(local, cfg, batch)
+    grads = dict(zip(local, torch.autograd.grad(loss, list(local.values()))))
+    del local, loss
+    errs = {"fused_sgd": 0.0, "rmsnorm": 0.0}
+    cases = {"fused_sgd": 0, "rmsnorm": 0}
+
+    def check_sgd(label, p, g, v, lr=LM_RUN["lr"]):
+        kp, kv = p.clone(), v.clone()
+        pp, pv = p.clone(), v.clone()
+        sgd.fused_sgd(kp, g, kv, lr, MOMENTUM)
+        sgd.fused_sgd_plain(pp, g, pv, lr, MOMENTUM)
+        torch.cuda.synchronize()
+        for got, want in ((kp, pp), (kv, pv)):
+            if got.numel():
+                errs["fused_sgd"] = max(errs["fused_sgd"], float(
+                    (got.float() - want.float()).abs().max()))
+            bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+            if not torch.equal(got.view(bits), want.view(bits)):
+                fail(f"fused_sgd != plain in {label} (max abs err "
+                     f"{errs['fused_sgd']})")
+        cases["fused_sgd"] += 1
+
+    with torch.no_grad():
+        for name, p in params.items():
+            g = grads[name].contiguous()
+            check_sgd(f"leaf {name} {tuple(p.shape)}", p, g, g * 0.5)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        rnd = lambda n: torch.randn(n, generator=gen, device="cuda")
+        check_sgd("ragged n = 1,000,003", rnd(1_000_003), rnd(1_000_003),
+                  rnd(1_000_003))
+        base = [rnd(100_004) for _ in range(3)]
+        mis = [b[1:] for b in base]
+        if not all(m.data_ptr() % 16 for m in mis):
+            fail("the misaligned case has a 16-byte aligned view")
+        check_sgd("misaligned views", *mis)
+        check_sgd("bf16 p", rnd(70_001).bfloat16(), rnd(70_001),
+                  rnd(70_001))
+        check_sgd("bf16 p and g", rnd(70_001).bfloat16(),
+                  rnd(70_001).bfloat16(), rnd(70_001))
+        check_sgd("f32 p, bf16 g", rnd(70_001), rnd(70_001).bfloat16(),
+                  rnd(70_001))
+        before = sgd.LAUNCHES
+        check_sgd("n = 0", rnd(0), rnd(0), rnd(0))
+        if sgd.LAUNCHES != before:
+            fail("an empty leaf launched the fused_sgd kernel")
+
+        def check_norm(label, x, gamma):
+            out, rstd = rn.rmsnorm(x, gamma, cfg.norm_eps)
+            want, want_rstd = rn.rmsnorm_plain(x, gamma, cfg.norm_eps)
+            torch.cuda.synchronize()
+            if out.dtype != x.dtype or out.shape != x.shape:
+                fail(f"rmsnorm in {label}: {out.dtype} {tuple(out.shape)}")
+            finite = torch.isfinite(want)
+            if not torch.equal(finite, torch.isfinite(out)):
+                fail(f"rmsnorm in {label}: non-finite values differ")
+            diff = (out.float() - want.float()).abs()[finite]
+            if diff.numel():
+                errs["rmsnorm"] = max(errs["rmsnorm"], float(diff.max()))
+            if x.dtype == torch.float32:
+                ok = bool((diff <= 1e-6 + 1e-5 * want.float().abs()[finite])
+                          .all())
+            else:
+                ok = bf16_ulps(out, want) <= 1
+            r_ok = bool(((rstd - want_rstd).abs()
+                         <= 1e-5 * want_rstd.abs()).all())
+            if not (ok and r_ok):
+                fail(f"rmsnorm != plain beyond the tolerance in {label} (max "
+                     f"abs err {errs['rmsnorm']})")
+            cases["rmsnorm"] += 1
+
+        x0 = layers.embed_tokens(params["embed"], batch["tokens"],
+                                 cfg.compute_dtype).reshape(-1, cfg.d_model)
+        check_norm(f"layer 0 ln1 activations {tuple(x0.shape)} bf16", x0,
+                   params["layers.ln1"][0])
+        check_norm("layer 0 activations, random f32 gamma", x0,
+                   rnd(cfg.d_model))
+        for d in (64, 2048, 8192):
+            for dt in (torch.float32, torch.bfloat16):
+                for gdt in (torch.float32, torch.bfloat16):
+                    check_norm(f"(1001, {d}) {dt} gamma {gdt}",
+                               rnd(1001 * d).reshape(1001, d).to(dt),
+                               rnd(d).to(gdt))
+        x = rnd(37 * 2048).reshape(37, 2048)
+        x[5] = 0.0
+        check_norm("an all-zero row", x, rnd(2048))
+        big = rnd(9 * 2048).reshape(9, 2048).sign() * 3.0e38
+        big[1] = rnd(2048) * 1e17                # large, sum of squares finite
+        big[2, 7] = torch.finfo(torch.float32).max
+        check_norm("near the f32 maximum", big, rnd(2048))
+    print(f"[7] fused_sgd == plain, bit for bit, in {cases['fused_sgd']} "
+          f"cases (12 tinyllama leaves with real gradients); rmsnorm within "
+          f"f32 rtol 1e-5 atol 1e-6 / bf16 1 ulp in {cases['rmsnorm']} cases "
+          f"(max abs err {errs['rmsnorm']})")
+    return grads, errs
+
+
+def phase_lm_path(fs, sgd, rn, federated_lm, cfg):
+    """(b) two rounds of federated_lm.run at full width on the card."""
+    import torch
+    checked = []
+
+    def on_round(rnd, res, flats):
+        want = fs.fedavg_stream_plain(flats)
+        avg = res.avg_flat
+        if avg.device.type != "cuda" or avg.shape != want.shape \
+                or not bool(torch.isfinite(avg).all()):
+            fail(f"round {rnd}: avg_flat is not a finite "
+                 f"({want.shape[0]},) CUDA tensor")
+        if not bits_equal(avg, want):
+            fail(f"round {rnd}: avg_flat != the plain fold of the "
+                 f"{len(flats)} client deltas")
+        checked.append(rnd)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = 0   # the main path starts here
+    out = federated_lm.run(cfg, device="cuda", on_round=on_round, **LM_RUN)
+    torch.cuda.synchronize()
+    launches = {"fedavg_stream": fs.LAUNCHES, "fused_sgd": sgd.LAUNCHES,
+                "rmsnorm": rn.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = LM_RUN["rounds"] * LM_RUN["clients"] * LM_RUN["local_steps"]
+    expect = {"fused_sgd": 12 * steps, "rmsnorm": NORMS_PER_FORWARD * steps}
+    if {k: launches[k] for k in expect} != expect \
+            or launches["fedavg_stream"] < LM_RUN["rounds"]:
+        fail(f"launches {launches}, expected {expect} and at least one fold "
+             f"a round")
+    if checked != list(range(LM_RUN["rounds"])):
+        fail(f"the fold was checked in rounds {checked}")
+    recs = out["rounds"]
+    losses = [r["client_losses"] for r in recs]
+    if not all(math.isfinite(x) for row in losses for x in row):
+        fail(f"a client loss is not finite: {losses}")
+    means = [r["mean_loss"] for r in recs]
+    if not all(m < means[0] for m in means[1:]):
+        fail(f"the mean client loss did not fall below the first round's: "
+             f"{means}")
+    if not all(bool(torch.isfinite(p).all()) for p in out["params"].values()):
+        fail("the trained parameters are not finite")
+    walls = {"client_s": [w for r in recs for w in r["client_walls_s"]],
+             "agg_s": [r["agg_wall_s"] for r in recs]}
+    print(f"[7] federated {cfg.name}: {steps} local steps, losses {losses}, "
+          f"mean {means}; launches {launches}; each round's mean == plain "
+          f"fold; client walls {', '.join(f'{w:.3f}' for w in walls['client_s'])} "
+          f"s, aggregation walls {', '.join(f'{w:.3f}' for w in walls['agg_s'])}"
+          f" s; peak device memory {peak_gb:.2f} GB (reckoned "
+          f"~{RECKONED_PEAK_GB:.0f} GB)")
+    return out["params"], launches, means, walls, peak_gb
+
+
+def phase_lm_timings(sgd, rn, layers, cfg, params, grads, peak):
+    """(c) fused-SGD over one step's 12 leaves and rmsnorm at the path's
+    (512, 2048) bf16, beside their bounds, plain versions and one PyTorch
+    call each."""
+    import torch
+    from repro_torch.launch.federated_lm import MOMENTUM
+    bw, f32, _ = peak
+    lr, mu = LM_RUN["lr"], MOMENTUM
+    names = list(params)
+    p = [params[k].detach().clone() for k in names]
+    g = [grads[k].contiguous() for k in names]
+    v = [x.clone() for x in g]
+    n = sum(x.numel() for x in p)
+    rows = {}
+    nbytes, ops = 20 * n, 3 * n              # p r/w, v r/w, g read: f32
+    t_bytes, t_ops = nbytes / bw, ops / f32
+    opt_params = [torch.nn.Parameter(x.clone()) for x in p]
+    for op, gr in zip(opt_params, g):
+        op.grad = gr
+    try:
+        opt = torch.optim.SGD(opt_params, lr=lr, momentum=mu, fused=True)
+        library = "torch.optim.SGD(fused=True).step()"
+    except (RuntimeError, ValueError, TypeError) as exc:
+        print(f"    fused SGD refused ({exc}); timing foreach=True")
+        opt = torch.optim.SGD(opt_params, lr=lr, momentum=mu, foreach=True)
+        library = "torch.optim.SGD(foreach=True).step()"
+    opt.step()                               # creates the momentum buffers
+    rows["fused_sgd"] = {
+        "elements": n, "bytes": nbytes, "ops": ops,
+        "ms": time_ms(lambda: [sgd.fused_sgd(a, b, c, lr, mu)
+                               for a, b, c in zip(p, g, v)]),
+        "plain_ms": time_ms(lambda: [sgd.fused_sgd_plain(a, b, c, lr, mu)
+                                     for a, b, c in zip(p, g, v)]),
+        "library_ms": time_ms(opt.step), "library": library,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    del opt, opt_params, p, v
+    tokens = torch.randint(0, 256, (LM_RUN["batch"], LM_RUN["seq"]),
+                           device="cuda")
+    x = layers.embed_tokens(params["embed"], tokens, cfg.compute_dtype) \
+        .reshape(-1, cfg.d_model)
+    gamma = params["final_norm"]
+    r, d = x.shape
+    nbytes = 2 * r * d * x.element_size() + d * 4 + 4 * r   # x, out, γ, rstd
+    ops = 4 * r * d                     # square, add, two multiplies
+    t_bytes, t_ops = nbytes / bw, ops / f32
+    g16 = gamma.to(torch.bfloat16)
+    rows["rmsnorm"] = {
+        "shape": [r, d], "bytes": nbytes, "ops": ops,
+        "ms": time_ms(lambda: rn.rmsnorm(x, gamma, cfg.norm_eps)),
+        "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, gamma, cfg.norm_eps)),
+        "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
+            x, (d,), weight=g16, eps=cfg.norm_eps)),
+        "library": "torch.nn.functional.rms_norm with gamma cast to bf16",
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    for name, row in rows.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(f"    {name}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.4f} "
+              f"ms plain, {row['library_ms']:.4f} ms {row['library']}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{100 * row['bound_share']:.1f}% of bound")
+    return rows
+
+
+def phase_lm_profile(models, data, cfg, params):
+    """One full-width local step (forward, backward, fused-SGD on every
+    leaf) under ``torch.profiler``: device time by kernel name and the
+    device's idle share of the step's host wall. A profiler that records
+    no device activity here reads as not measured."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.core.fedavg import local_sgd_update
+    from repro_torch.launch.federated_lm import MOMENTUM
+    local = {k: v.detach().clone() for k, v in params.items()}
+    batch = data.batch(1, 0, LM_RUN["batch"], device="cuda")
+    step = lambda: local_sgd_update(
+        lambda p, b: models.loss_fn(p, cfg, b), local, batch,
+        lr=LM_RUN["lr"], momentum=MOMENTUM)
+    step()                                    # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("    profile: no device activity recorded; not measured")
+        return None
+    by_name = collections.Counter()
+    spans = []
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_ms = (busy_us + cur_e - cur_s) / 1e3
+    top = [[name[:90], ms] for name, ms in by_name.most_common(10)]
+    # the port's kernels by their device time alone; the CUDA-event
+    # timings of phase 7 (c) also hold the wrapper's host work whenever
+    # the device waits for it
+    ours = {}
+    for tag in ("fused_sgd_kernel", "rmsnorm_kernel"):
+        times = [e.time_range.elapsed_us() / 1e3 for e in kernels
+                 if tag in e.name]
+        ours[tag] = {"launches": len(times), "device_ms": sum(times),
+                     "ms_per_launch": sum(times) / max(1, len(times))}
+    out = {"step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms,
+           "kernel_sum_ms": sum(by_name.values()), "kernels": len(kernels),
+           "top": top, "ours": ours}
+    print(f"    one local step under the profiler: {wall_ms:.2f} ms host "
+          f"wall, device busy {busy_ms:.2f} ms ({100 * out['idle_share']:.1f}"
+          f"% idle), {len(kernels)} kernels")
+    for name, ms in top:
+        print(f"      {ms:8.3f} ms  {name}")
+    for tag, row in ours.items():
+        print(f"      {tag}: {row['launches']} launches, "
+              f"{row['ms_per_launch']:.5f} ms device time each")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -688,6 +1023,13 @@ def main() -> None:
     from repro_torch.kernels import fedavg_stream as fs
     from repro_torch.kernels import quantize as q
     from repro_torch.kernels import topk_sparsify as tk
+    from repro_torch.kernels import fused_sgd as sgd
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import federated_lm
+    from repro_torch.models import layers
+    from repro_torch.models import registry as models
     from repro_torch import smoke
 
     phase_build(build)
@@ -702,6 +1044,26 @@ def main() -> None:
     codec_counts, codec_per_round, codec_walls = phase_full_width_codecs(
         fs, q, tk, grads, cm, plan_uniform, FederatedSession)
     codec_rows = phase_codec_timings(q, tk, grads, plan_uniform, peaks(name))
+    del grads
+
+    # f32 products in the model run in full f32 (no TF32), as stated
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm_cfg = dataclasses.replace(get_arch(LM_ARCH).model, remat=False)
+    lm_data = SyntheticLM(vocab=lm_cfg.vocab, seq_len=LM_RUN["seq"], seed=0,
+                          markov_concentration=0.4)
+    lm_params = models.init_params(torch.Generator(device="cuda").manual_seed(
+        federated_lm.SEED), lm_cfg)
+    torch.cuda.empty_cache()
+    lm_grads, lm_errs = phase_lm_kernels(sgd, rn, layers, models, lm_data,
+                                         lm_cfg, lm_params)
+    del lm_params
+    trained, lm_launches, lm_means, lm_walls, lm_peak = phase_lm_path(
+        fs, sgd, rn, federated_lm, lm_cfg)
+    lm_rows = phase_lm_timings(sgd, rn, layers, lm_cfg, trained, lm_grads,
+                               peaks(name))
+    del lm_grads
+    lm_profile = phase_lm_profile(models, lm_data, lm_cfg, trained)
 
     head = rows[0]                       # the GradsSharding wave
     print(json.dumps({"waves": rows, "round_walls_s": walls,
@@ -709,7 +1071,10 @@ def main() -> None:
                       "codec_kernels": codec_rows,
                       "codec_round_walls_s": codec_walls,
                       "codec_launches_per_round": codec_per_round,
-                      "card": card}))
+                      "lm_kernels": lm_rows, "lm_launches": lm_launches,
+                      "lm_mean_losses": lm_means, "lm_walls_s": lm_walls,
+                      "lm_peak_memory_gb": lm_peak,
+                      "lm_step_profile": lm_profile, "card": card}))
     kernels = [{
         "name": "fedavg_stream", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_stream.cu",
@@ -732,6 +1097,18 @@ def main() -> None:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "equal_plain": True})
+    for name, replaces, exact in (
+            ("fused_sgd", "src/repro/kernels/fused_sgd.py:29", True),
+            ("rmsnorm", "src/repro/kernels/rmsnorm.py:25", False)):
+        row = lm_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": lm_launches[name],
+            "max_abs_err": lm_errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "equal_plain": exact})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ gradient partitioning, on PyTorch and CUDA.
 Paper: "Shard the Gradient, Scale the Model" (A. Barrak, CS.DC 2026).
 Client gradients, shard views and the round's mean are torch tensors on
 the session's device; the event heap, Lambda runtime, cost model and the
-seeded numpy streams that drive them are host-side control plane.
+seeded numpy streams that drive them are host-side control plane. The
+federated LM trainer (``repro_torch.launch.federated_lm``) trains a dense
+transformer (``repro_torch.models``) on the clients' side of each round.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,17 @@
-"""Federated-learning and serverless platform configuration.
+"""Federated-learning, serverless platform and model configuration.
 
-The aggregation stack's share of the reference package's configuration:
-the FL round settings and the AWS Lambda platform constants the cost
-model and the simulated runtime price every round with. No model, mesh
-or hardware configuration lives here yet.
+The reference package's configuration as far as the port runs it: the FL
+round settings and the AWS Lambda platform constants the cost model and
+the simulated runtime price every round with, and the model configuration
+of the federated LM trainer (``ModelConfig``, ``ArchSpec``, ``smoke_of``).
+No mesh or hardware configuration lives here yet.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Any
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -55,3 +59,141 @@ DEFAULT_LIMITS = LambdaLimits()
 # without initializing the repro_torch.core package (import-cycle hygiene);
 # cost_model re-exports it.
 AGG_COMPUTE_BPS = 5.2e9
+
+
+# ---------------------------------------------------------------------------
+# Model configuration (the dense LM stack of the federated trainer)
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio", "cnn")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 16
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    # Router jitter / aux losses are off for dry-run determinism.
+    router_aux_weight: float = 0.0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style SSM block config (v1 selective scan or v2/SSD)."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    version: int = 1            # 1 = Mamba-1 selective scan, 2 = Mamba-2 / SSD
+    head_dim: int = 64          # Mamba-2 only
+    chunk: int = 256            # SSD chunk length for prefill/train
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """The reference's model configuration, field for field; the numeric
+    types are torch dtypes (parameters f32, compute bf16 by default)."""
+
+    name: str
+    family: str                          # one of FAMILIES
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                    # 0 -> d_model // n_heads
+    # --- attention flavour flags -------------------------------------------
+    qk_norm: bool = False                # qwen3
+    qkv_bias: bool = False               # qwen2.5
+    sliding_window: int = 0              # 0 = full attention; >0 = SWA width
+    rope_theta: float = 10_000.0
+    gated_mlp: bool = True               # SwiGLU (llama family); False = GELU
+    # --- mixture of experts ------------------------------------------------
+    moe: MoEConfig | None = None
+    # --- state-space -------------------------------------------------------
+    ssm: SSMConfig | None = None
+    attn_every: int = 0                  # hybrid: shared attn block every k layers
+    # --- encoder-decoder ---------------------------------------------------
+    encoder_layers: int = 0              # >0 -> enc-dec (whisper-style)
+    encoder_seq: int = 1500              # stub frontend frame count (whisper 30s)
+    frontend_dim: int = 0                # stub modality frontend embed dim (0 = vocab)
+    # --- numerics ----------------------------------------------------------
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    # --- structural --------------------------------------------------------
+    scan_layers: bool = True             # reference: lax.scan over stacked layers
+    unroll_scans: bool = False           # reference: unrolled inner chunk scans
+    decode_grouped_attn: bool = False    # GQA decode without KV expansion
+    attn_causal_skip: bool = False       # 2-D chunked attn, skip masked blocks
+    moe_dispatch: str = "global"         # "global" | "local" (shard_map)
+    remat: bool = True                   # activation checkpointing per layer
+    attn_chunk: int = 2048               # online-softmax KV chunk (0 = dense)
+    subquadratic: bool = False           # eligible for long_500k
+    notes: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(1, self.n_heads))
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def param_count(self) -> int:
+        """Exact parameter count, from the parameter shapes."""
+        from repro_torch.models import registry  # lazy, avoids a cycle
+        return registry.param_count(self)
+
+    def grad_bytes(self, dtype_bytes: int = 4) -> int:
+        return self.param_count() * dtype_bytes
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    """A registered architecture. The reference's input-shape cells of the
+    dry-run (``shapes``, ``cells``) have no caller in the port yet."""
+
+    arch_id: str
+    model: ModelConfig
+    smoke: ModelConfig                   # reduced same-family config for CPU tests
+    source: str = ""
+
+
+def smoke_of(m: ModelConfig, **over) -> ModelConfig:
+    """Derive a tiny same-family config: small dims, few layers/experts."""
+    kw: dict[str, Any] = dict(
+        name=m.name + "-smoke",
+        n_layers=min(m.n_layers, 2),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(m.n_kv_heads, 2) if m.n_kv_heads < m.n_heads else 4,
+        d_ff=128,
+        vocab=256,
+        head_dim=16,
+        scan_layers=m.scan_layers,
+        remat=False,
+        attn_chunk=0,
+    )
+    if m.moe is not None:
+        kw["moe"] = replace(m.moe, n_experts=4, top_k=min(m.moe.top_k, 2))
+    if m.ssm is not None:
+        kw["ssm"] = replace(m.ssm, d_state=min(m.ssm.d_state, 8), chunk=16,
+                            head_dim=16)
+    if m.encoder_layers:
+        kw["encoder_layers"] = 2
+        kw["encoder_seq"] = 16
+    if m.attn_every:
+        kw["attn_every"] = 2
+    kw.update(over)
+    return replace(m, **kw)

@@ -18,15 +18,65 @@ Strategies:
                             shard (non-contiguous index sets).
 
 The plans are pure Python; shards, views and the reconstruction are torch
-tensors on the gradient's device.
+tensors on the gradient's device. :func:`flatten` turns a parameter dict
+(a state dict under dotted names) into the client's flat vector, in the
+reference's leaf order.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Flatten / unflatten
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FlatSpec:
+    names: tuple[str, ...]
+    shapes: tuple[tuple[int, ...], ...]
+    dtypes: tuple[torch.dtype, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def total(self) -> int:
+        return int(sum(self.sizes))
+
+
+def leaf_order(names) -> list[str]:
+    """Dotted names in ``jax.tree.flatten``'s order: dict keys sorted at
+    every level of the tree, i.e. names sorted by their dotted parts."""
+    return sorted(names, key=lambda name: name.split("."))
+
+
+def flatten(tree: Mapping[str, torch.Tensor], dtype=torch.float32
+            ) -> tuple[torch.Tensor, FlatSpec]:
+    """A dict of tensors under dotted names -> (one flat ``dtype`` vector
+    of every leaf raveled in the reference's leaf order, its spec)."""
+    names = leaf_order(tree)
+    leaves = [tree[name] for name in names]
+    spec = FlatSpec(names=tuple(names),
+                    shapes=tuple(tuple(t.shape) for t in leaves),
+                    dtypes=tuple(t.dtype for t in leaves),
+                    sizes=tuple(t.numel() for t in leaves))
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in leaves]) if leaves \
+        else torch.zeros((0,), dtype=dtype)
+    return flat, spec
+
+
+def unflatten(flat: torch.Tensor, spec: FlatSpec) -> dict:
+    """The inverse of :func:`flatten`: leaves are views of ``flat`` where
+    the types agree."""
+    out, off = {}, 0
+    for name, shape, dt, size in zip(spec.names, spec.shapes, spec.dtypes,
+                                     spec.sizes):
+        out[name] = flat[off:off + size].reshape(shape).to(dt)
+        off += size
+    return out
 
 
 # ---------------------------------------------------------------------------

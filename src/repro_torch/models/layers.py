@@ -1,0 +1,296 @@
+"""Shared layers of the port's decoder LM, on torch tensors.
+
+The dense-family subset of the reference's ``models/layers.py``: the
+initializers, RMSNorm, RoPE, dense causal attention with GQA, the
+attention and MLP blocks, the embedding, the LM head and the
+cross-entropy. Parameters are plain dicts of tensors under the
+reference's names and layouts (``wq`` is ``(d, heads, head_dim)``), so a
+JAX parameter tree carries over element for element
+(:func:`repro_torch.convert.params_from_jax`).
+
+Numerics follow the reference: weights are cast to ``cfg.compute_dtype``
+before each projection; RoPE, the attention scores, the softmax and the
+probability-value product run in f32 (the reference's einsums ask for an
+f32 result, ``preferred_element_type``; here q, k, the rounded
+probabilities and v are cast to f32 before the product); the loss is
+taken in f32. RMSNorm runs through the hand-written kernel
+(:mod:`repro_torch.kernels.rmsnorm`) on the card.
+
+The KV-chunked online-softmax attention (``attention_chunked``) and the
+2-D causal tiling (``attention_causal_2d``) of the reference serve
+sequences longer than ``cfg.attn_chunk``; they are not ported yet
+(ROADMAP queue 1, item 12), and :func:`attention` raises there. So does
+the decode path (``decode_attention_block``, KV cache).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import rmsnorm as _rn
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, in_axis_size: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Normal(0, 1/in_axis_size) on the generator's device."""
+    scale = 1.0 / math.sqrt(max(1, in_axis_size))
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+            ).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype: torch.dtype
+               ) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02
+            ).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class _RMSNorm(torch.autograd.Function):
+    """Forward: the rmsnorm kernel (its plain version on the CPU), which
+    also returns each row's ``rstd``. Backward: plain PyTorch from the
+    saved rows, γ and ``rstd``, in f32:
+
+        x̂ = x·r,  dγ = Σ_rows dy·x̂,  dx = r·(dy·γ − x̂·mean(dy·γ·x̂))
+    """
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        rows = x.reshape(-1, x.shape[-1])
+        out, rstd = _rn.rmsnorm(rows, gamma, eps)
+        ctx.save_for_backward(rows, gamma, rstd)
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        rows, gamma, rstd = ctx.saved_tensors
+        r = rstd[:, None]
+        xhat = rows.to(torch.float32) * r
+        dyf = dy.reshape(rows.shape).to(torch.float32)
+        dgamma = None
+        if ctx.needs_input_grad[1]:
+            dgamma = (dyf * xhat).sum(dim=0).to(gamma.dtype)
+        gy = dyf * gamma.to(torch.float32)
+        dx = r * (gy - xhat * torch.mean(gy * xhat, dim=-1, keepdim=True))
+        return dx.to(rows.dtype).reshape(dy.shape), dgamma, None
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    """``x·rsqrt(mean(x²) + eps)·γ`` over the last axis, in x's type."""
+    return _RMSNorm.apply(x, gamma, eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S).
+    Rotates the two halves of each head (the reference's layout)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+def _expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, T, KH, D) -> (B, T, H, D): q head h reads kv head h // (H/KH)."""
+    kh = kv.shape[2]
+    if kh == n_heads:
+        return kv
+    return kv.repeat_interleave(n_heads // kh, dim=2)
+
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window: int,
+               k_valid=None) -> torch.Tensor:
+    """Additive f32 bias (S, T), 0 where a query may attend, else NEG_INF."""
+    m = torch.ones(q_pos.shape[-1], k_pos.shape[-1], dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    if k_valid is not None:
+        m &= k_valid[None, :]
+    return torch.zeros(m.shape, dtype=torch.float32,
+                       device=m.device).masked_fill(~m, NEG_INF)
+
+
+def attention_dense(q, k, v, *, q_pos, k_pos, causal=True, window=0,
+                    k_valid=None):
+    """q: (B,S,H,D); k,v: (B,T,KH,D). Returns (B,S,H,D) in q's type. The
+    scores, softmax and weighted sum run in f32; the probabilities are
+    rounded to v's type first, as in the reference."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    bias = _mask_bias(q_pos, k_pos, causal=causal, window=window,
+                      k_valid=k_valid)
+    k = _expand_kv(k, q.shape[2])
+    v = _expand_kv(v, q.shape[2])
+    f32 = torch.float32
+    scores = torch.einsum("bshd,bthd->bhst", q.to(f32), k.to(f32)) * scale
+    probs = torch.softmax(scores + bias[None, None], dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype).to(f32),
+                       v.to(f32))
+    return out.to(q.dtype)
+
+
+def attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, chunk=0,
+              k_valid=None, causal_skip=False):
+    full_self = causal and k_valid is None and q.shape[1] == k.shape[1]
+    if (causal_skip and full_self and chunk and q.shape[1] > chunk
+            and q.shape[1] % chunk == 0) \
+            or (chunk and k.shape[1] > chunk and k_valid is None):
+        raise NotImplementedError(
+            f"sequence {k.shape[1]} is longer than attn_chunk {chunk}: "
+            f"attention_chunked and attention_causal_2d are not ported yet "
+            f"(ROADMAP queue 1, item 12)")
+    return attention_dense(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                           window=window, k_valid=k_valid)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + rope)
+# ---------------------------------------------------------------------------
+
+def attn_shapes(cfg: ModelConfig) -> dict:
+    d, h, kh, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    p = {"wq": (d, h, hd), "wk": (d, kh, hd), "wv": (d, kh, hd),
+         "wo": (h, hd, d)}
+    if cfg.qkv_bias:
+        p.update(bq=(h, hd), bk=(kh, hd), bv=(kh, hd))
+    if cfg.qk_norm:
+        p.update(qnorm=(hd,), knorm=(hd,))
+    return p
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+              lead: tuple = ()) -> dict:
+    """The attention weights; ``lead`` prepends axes (the layer stack)."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    shapes = attn_shapes(cfg)
+    fan_in = {"wq": d, "wk": d, "wv": d, "wo": h * hd}
+    p = {k: dense_init(gen, lead + shapes[k], fan_in[k], dtype)
+         for k in ("wq", "wk", "wv", "wo")}
+    dev = gen.device
+    for k in ("bq", "bk", "bv"):
+        if k in shapes:
+            p[k] = torch.zeros(lead + shapes[k], dtype=dtype, device=dev)
+    for k in ("qnorm", "knorm"):
+        if k in shapes:
+            p[k] = torch.ones(lead + shapes[k], dtype=dtype, device=dev)
+    return p
+
+
+def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+    """x: (B,S,D) -> q (B,S,H,hd), k,v (B,S,KH,hd), rope applied."""
+    cd = cfg.compute_dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["qnorm"], cfg.norm_eps)
+        k = rmsnorm(k, p["knorm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(p: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cfg.compute_dtype))
+
+
+def self_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                         positions, causal=True) -> torch.Tensor:
+    """Full-sequence self-attention (train / prefill)."""
+    q, k, v = project_qkv(p, x, cfg, positions)
+    o = attention(q, k, v, q_pos=positions, k_pos=positions, causal=causal,
+                  window=cfg.sliding_window, chunk=cfg.attn_chunk,
+                  causal_skip=cfg.attn_causal_skip)
+    return attn_out(p, o, cfg)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense)
+# ---------------------------------------------------------------------------
+
+def mlp_shapes(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"w1": (d, f), "w2": (f, d)}
+    if cfg.gated_mlp:
+        p["w3"] = (d, f)
+    return p
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             lead: tuple = ()) -> dict:
+    fan_in = {"w1": cfg.d_model, "w2": cfg.d_ff, "w3": cfg.d_model}
+    return {k: dense_init(gen, lead + shape, fan_in[k], dtype)
+            for k, shape in mlp_shapes(cfg).items()}
+
+
+def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cd = cfg.compute_dtype
+    h = torch.einsum("bsd,df->bsf", x, p["w1"].to(cd))
+    if cfg.gated_mlp:
+        g = torch.einsum("bsd,df->bsf", x, p["w3"].to(cd))
+        h = F.silu(h) * g
+    else:
+        h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
+    return torch.einsum("bsf,fd->bsd", h, p["w2"].to(cd))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cd
+                 ) -> torch.Tensor:
+    return F.embedding(tokens, table).to(cd)
+
+
+def lm_logits(x: torch.Tensor, head: torch.Tensor, cd) -> torch.Tensor:
+    return torch.einsum("bsd,dv->bsv", x, head.to(cd))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE. logits (B,S,V) any float type; labels (B,S)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

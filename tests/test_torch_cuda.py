@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, bit for bit.
+"""The CUDA kernels against their plain PyTorch versions: bit for bit,
+except rmsnorm, whose sum runs in another order than torch.mean's (f32:
+rtol 1e-5 and atol 1e-6; bf16: one ulp).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernel is built
 with nvcc on first use); they skip elsewhere. The file imports only the
@@ -15,6 +17,8 @@ from repro_torch import smoke  # noqa: E402
 from repro_torch.kernels import fedavg_stream as fs  # noqa: E402
 from repro_torch.kernels import quantize as q  # noqa: E402
 from repro_torch.kernels import topk_sparsify as tk  # noqa: E402
+from repro_torch.kernels import fused_sgd as sgd  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 
 CASES = ["unweighted", "bf16", "weighted_f64", "weighted_f32", "n1",
          "misaligned", "multi_node"]
@@ -160,3 +164,107 @@ def test_codec_round_on_card_equals_cpu(topology, codec):
                               codec=codec, device="cpu").round(grads)
     assert smoke.avg_hash(on_card.avg_flat) == smoke.avg_hash(on_cpu.avg_flat)
     assert on_card.codec_error == on_cpu.codec_error
+
+
+SGD_CASES = ["f32", "bf16_p", "bf16_g", "bf16_both", "ragged", "misaligned"]
+
+
+def _sgd_inputs(case):
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rnd = lambda n: torch.randn(n, generator=g, device="cuda")
+    n = 1_000_003 if case == "ragged" else 65_536
+    p, grad, v = rnd(n), rnd(n), rnd(n)
+    if case in ("bf16_p", "bf16_both"):
+        p = p.bfloat16()
+    if case in ("bf16_g", "bf16_both"):
+        grad = grad.bfloat16()
+    if case == "misaligned":
+        p, grad, v = (t[1:] for t in (rnd(n + 1), rnd(n + 1), rnd(n + 1)))
+        assert p.data_ptr() % 16 != 0
+    return p, grad, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SGD_CASES)
+def test_fused_sgd_bit_equal_plain_on_card(case):
+    _need_card()
+    p, g, v = _sgd_inputs(case)
+    want_p, want_v = p.clone(), v.clone()
+    sgd.fused_sgd_plain(want_p, g, want_v, 0.1, 0.9)
+    before = sgd.LAUNCHES
+    got_p, got_v = sgd.fused_sgd(p, g, v, 0.1, 0.9)
+    torch.cuda.synchronize()
+    assert sgd.LAUNCHES == before + 1
+    assert got_p is p and got_v is v
+    bits = torch.int16 if p.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(p.view(bits), want_p.view(bits))
+    assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_sgd_skips_empty_leaf_on_card():
+    _need_card()
+    before = sgd.LAUNCHES
+    e = torch.empty(0, device="cuda")
+    sgd.fused_sgd(e, e, e.clone(), 0.1)
+    assert sgd.LAUNCHES == before
+
+
+def _bf16_ulps(a, b):
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 2048, 8192])
+@pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("g_dtype", ["f32", "bf16"])
+def test_rmsnorm_within_tolerance_of_plain_on_card(d, x_dtype, g_dtype):
+    _need_card()
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn(37, d, generator=gen, device="cuda").to(types[x_dtype])
+    x[3] = 0.0
+    gamma = torch.randn(d, generator=gen, device="cuda").to(types[g_dtype])
+    before = rn.LAUNCHES
+    out, rstd = rn.rmsnorm(x, gamma)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES == before + 1
+    want, want_rstd = rn.rmsnorm_plain(x, gamma)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    if x_dtype == "f32":
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    else:
+        assert _bf16_ulps(out, want) <= 1
+
+
+@pytest.mark.cuda
+def test_federated_lm_smoke_round_on_card():
+    """One round of the smoke configuration through the kernels, against
+    the same round on the CPU at f32 compute (losses rtol 1e-3: the card's
+    matmuls sum in another order)."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import federated_lm
+    from repro_torch.models import registry as models
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b").smoke,
+                              compute_dtype=torch.float32)
+    params = models.init_params(torch.Generator().manual_seed(0), cfg)
+    kw = dict(rounds=1, clients=2, shards=2, local_steps=2, batch=2, seq=16,
+              engine="batched", params=params)
+    before = (fs.LAUNCHES, sgd.LAUNCHES, rn.LAUNCHES)
+    on_card = federated_lm.run(cfg, device="cuda", **kw)
+    grew = [b - a for a, b in zip(before, (fs.LAUNCHES, sgd.LAUNCHES,
+                                           rn.LAUNCHES))]
+    steps = 2 * 2
+    assert grew[0] >= 1 and grew[1:] == [12 * steps, 5 * steps]
+    assert all(p.device.type == "cuda" for p in on_card["params"].values())
+    on_cpu = federated_lm.run(cfg, device="cpu", **kw)
+    torch.testing.assert_close(
+        torch.tensor(on_card["rounds"][0]["client_losses"]),
+        torch.tensor(on_cpu["rounds"][0]["client_losses"]), rtol=1e-3,
+        atol=0)

@@ -39,6 +39,11 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
         "import repro_torch, repro_torch.api, repro_torch.smoke\n"
         "import repro_torch.kernels.fedavg_stream, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.core.wire_codec\n"
+        "import repro_torch.kernels.fused_sgd, repro_torch.kernels.rmsnorm\n"
+        "import repro_torch.models, repro_torch.models.transformer\n"
+        "import repro_torch.core.fedavg, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.configs, repro_torch.launch.train\n"
+        "import repro_torch.launch.federated_lm\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")
