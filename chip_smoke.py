@@ -16,9 +16,10 @@ Phases, each fatal on failure:
    weighted forms, N = 1, ragged and misaligned views, subnormals and a
    mixed multi-node table; then the codec kernels (quantize, dequantize,
    top-k) against theirs, bit for bit: each VGG-16 shard and the whole
-   gradient, n = 0, a short and a misaligned vector, an all-zero tile, a
-   tile with fewer than k nonzeros, exact .5 quotients, subnormals and
-   values near the f32 maximum;
+   gradient (32,715 tiles), n = 0, a short and a misaligned vector, fewer
+   tiles than SMs, an all-zero tile, a tile with fewer than k nonzeros,
+   exact .5 quotients, subnormals, values near the f32 maximum, tiles with
+   NaN and ±inf, a heavy-tailed and a tied input;
 4. the reference's pinned smoke keys (``benchmarks/expected_smoke.json``,
    read as JSON) recomputed on the card: 168 keys across topology × engine
    × schedule and the ``readahead_k`` sweeps, and the 36 wire-codec keys;
@@ -37,7 +38,8 @@ Phases, each fatal on failure:
    encode, decode and fold) on the card bit for bit and a numpy mirror on
    a 256-tile slice, and ``codec_error`` the plain pipeline's. Then each
    codec kernel's time on one VGG-16 shard beside its bound, its plain
-   version's and, for dequantize, one ``torch.mul``;
+   version's and, for dequantize, one ``torch.mul``; by CUDA events around
+   one call and by device time under ``torch.profiler``;
 7. federated LM at full width (``tinyllama-1.1b``, 1.1 B parameters):
    (a) the fused-SGD kernel against its plain version bit for bit, on each
    of the 12 parameter leaves with real gradients of one local step, at a
@@ -46,7 +48,9 @@ Phases, each fatal on failure:
    version at its tolerance (f32: rtol 1e-5, atol 1e-6; bf16: one ulp), on
    the real (512, 2048) bf16 activations at layer 0's first norm, at
    d = 64, 2048 and 8192 in f32 and bf16 with a row count that is not a
-   multiple of 8, on an all-zero row and near the f32 maximum; (b) two
+   multiple of 8, on an all-zero row, near the f32 maximum, on a view 4
+   bytes off 16-byte alignment, on rows 2056 apart, at d = 2047 bf16 and
+   8191 f32 (no 16-byte width), on one row, and on none (no launch); (b) two
    rounds of ``federated_lm.run`` (N = 4, M = 4, 2 local steps, batch 8,
    sequence 64, lr 0.05, batched engine, parameters from a seeded
    generator on the card): rmsnorm launches 45 per forward, fused-SGD 12 per local step,
@@ -56,8 +60,12 @@ Phases, each fatal on failure:
    over one step's 12 leaves and rmsnorm at (512, 2048) bf16 beside their
    bounds, plain versions and one PyTorch call each, the host walls of a
    client's local training and of an aggregation round, and the peak
-   device memory; then one local step under ``torch.profiler`` (device
-   time by kernel, the device's idle share).
+   device memory; rmsnorm and ``F.rms_norm`` by events around one call
+   timed in turns, by host time per call, and by device time per call
+   under ``torch.profiler``, beside the device time of a ``copy_`` of the
+   same activations (the card's floor for one pass of that size); then one
+   local step under ``torch.profiler`` (device time by kernel, the
+   device's idle share).
 
 The last lines are a JSON object of timings and walls, a JSON ``kernels``
 line, and ``{"ok": true, "device": {...}}``.
@@ -82,6 +90,7 @@ N_SHARDS = 4             # FLConfig.n_shards
 SEED = 20260516
 ROUNDS = 3               # full-width rounds per topology (fresh sessions)
 REPS = 7                 # timed launches per wave, after a warm-up
+PROFILED_CALLS = 50      # calls per device-time reading under the profiler
 SLICE = 1_000_000        # host numpy check of the round's mean
 TOPOLOGIES = ("gradssharding", "lambda_fl", "lifl")
 SOURCES = ("fedavg_stream", "quantize", "topk_sparsify", "fused_sgd",
@@ -207,6 +216,67 @@ def wave_cost(nodes, peak) -> tuple:
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def device_ms(fn, tag: str | None = None):
+    """Device time per call of ``fn`` under ``torch.profiler``: the CUDA
+    kernels whose name holds ``tag`` (all of them when ``tag`` is None)
+    over ``PROFILED_CALLS`` calls after a warm-up, summed and divided by
+    the calls; and the kernels a call. A profile that records no device
+    activity is taken again, twice at most; then None."""
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILED_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and (tag is None or tag in e.name)]
+        if times:
+            return sum(times) / PROFILED_CALLS / 1e3, \
+                len(times) / PROFILED_CALLS
+    return None
+
+
+def paired_ms(fa, fb, reps: int = 21) -> tuple:
+    """Median CUDA-event time around one call of ``fa`` and of ``fb``,
+    timed in turns (a b, b a, ...) after a warm-up, so that a drift of the
+    host's speed falls on both alike."""
+    import torch
+    fa()
+    fb()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(reps):
+        for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (fa, fb)[k]()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call over back-to-back calls: the cost of dispatch,
+    which a short kernel's event time is made of."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
 def time_ms(fn) -> float:
     """Median device time of ``fn`` (CUDA events), after one warm-up."""
     import torch
@@ -328,13 +398,13 @@ def phase_codec_kernels(q, tk, grads, plan_uniform):
         if got.dtype != want.dtype or got.shape != want.shape:
             fail(f"{kernel} in {label}: {got.dtype} {tuple(got.shape)} vs "
                  f"plain {want.dtype} {tuple(want.shape)}")
-        diff = got != want
+        as_bits = (lambda t: t) if got.dtype == torch.int8 else \
+            (lambda t: t.view(torch.int32))
+        diff = as_bits(got) != as_bits(want)
         if bool(diff.any()):
             err = float((got[diff].double() - want[diff].double()).abs()
                         .max())
             errs[kernel] = max(errs[kernel], err)
-        as_bits = (lambda t: t) if got.dtype == torch.int8 else \
-            (lambda t: t.view(torch.int32))
         if not torch.equal(as_bits(got), as_bits(want)):
             fail(f"{kernel} != plain in {label} (max abs err "
                  f"{errs[kernel]})")
@@ -376,6 +446,9 @@ def phase_codec_kernels(q, tk, grads, plan_uniform):
     if mis.data_ptr() % 16 == 0:
         fail("the misaligned case has a 16-byte aligned view")
     check("misaligned start", mis, ((5, 50_001),))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(f"fewer tiles ({sms // 2} + a ragged one) than SMs ({sms})",
+          rnd((sms // 2) * TILE + 1_234))
     x = rnd(4 * TILE + 17)
     x[TILE:2 * TILE] = 0.0                        # an all-zero tile
     x[2 * TILE:3 * TILE] = 0.0                    # fewer than k nonzeros
@@ -394,6 +467,15 @@ def phase_codec_kernels(q, tk, grads, plan_uniform):
            + 3.0e38) * torch.sign(rnd(2 * TILE + 9))
     big[5] = torch.finfo(torch.float32).max
     check("near the f32 maximum", big)
+    x = rnd(3 * TILE + 33)
+    x[5] = x[700] = float("nan")                  # NaN, +inf and -inf
+    x[9], x[100] = float("inf"), float("-inf")
+    x[2 * TILE + 7], x[2 * TILE + 8] = float("inf"), float("-inf")
+    x[3 * TILE + 4] = float("nan")                # a NaN in the ragged tile
+    check("NaN and ±inf tiles beside a clean tile", x)
+    u = torch.rand(300_007, generator=gen, device="cuda")
+    check("heavy-tailed (Cauchy)", torch.tan(torch.pi * (u - 0.5)))
+    check("ties (few distinct magnitudes)", torch.round(rnd(200_000) * 4))
     print(f"[3] codec kernels == plain, bit for bit, in {cases} cases "
           f"(max abs err {errs})")
     return errs
@@ -694,13 +776,20 @@ def phase_codec_timings(q, tk, grads, plan_uniform, peak):
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": time_ms(library) if library else None}
+        # the kernel alone: the event pair above also holds the wrapper's
+        # host work while the device waits for it
+        got = device_ms(kernel, f"::{name.split('_')[0]}_kernel")
+        row["device_ms"] = got[0] if got else None
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows[name] = row
         lib = f"{row['library_ms']:.3f} ms" if library else "none"
+        dev = "not measured" if got is None else \
+            (f"{row['device_ms']:.4f} ms "
+             f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound)")
         print(f"    {name} on one shard ({n} elements): {row['ms']:.3f} ms "
               f"kernel, {row['plain_ms']:.3f} ms plain, library {lib}, "
               f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
-              f"{100 * row['bound_share']:.1f}% of bound")
+              f"{100 * row['bound_share']:.1f}% of bound; device time {dev}")
     return rows
 
 
@@ -816,6 +905,26 @@ def phase_lm_kernels(sgd, rn, layers, models, data, cfg, params):
         big[1] = rnd(2048) * 1e17                # large, sum of squares finite
         big[2, 7] = torch.finfo(torch.float32).max
         check_norm("near the f32 maximum", big, rnd(2048))
+        mis = rnd(513 * 2048).bfloat16()[2:2 + 512 * 2048].reshape(512, 2048)
+        if mis.data_ptr() % 16 == 0:
+            fail("the misaligned rmsnorm case has a 16-byte aligned view")
+        check_norm("(512, 2048) bf16, 4 bytes off 16-byte alignment", mis,
+                   rnd(2048))
+        check_norm("(300, 2048) bf16 rows 2056 apart",
+                   rnd(300 * 2056).reshape(300, 2056).bfloat16()[:, :2048],
+                   rnd(2048))
+        check_norm("(129, 2047) bf16", rnd(129 * 2047).reshape(129, 2047)
+                   .bfloat16(), rnd(2047))
+        check_norm("(33, 8191) f32, bf16 gamma", rnd(33 * 8191)
+                   .reshape(33, 8191), rnd(8191).bfloat16())
+        check_norm("one row", rnd(cfg.d_model).reshape(1, -1).bfloat16(),
+                   params["final_norm"])
+        before = rn.LAUNCHES
+        out, rstd = rn.rmsnorm(rnd(0).reshape(0, 2048), rnd(2048))
+        if rn.LAUNCHES != before or out.shape != (0, 2048) \
+                or rstd.shape != (0,):
+            fail("rmsnorm on no rows launched its kernel or gave "
+                 f"{tuple(out.shape)}, {tuple(rstd.shape)}")
     print(f"[7] fused_sgd == plain, bit for bit, in {cases['fused_sgd']} "
           f"cases (12 tinyllama leaves with real gradients); rmsnorm within "
           f"f32 rtol 1e-5 atol 1e-6 / bf16 1 ulp in {cases['rmsnorm']} cases "
@@ -924,21 +1033,50 @@ def phase_lm_timings(sgd, rn, layers, cfg, params, grads, peak):
     ops = 4 * r * d                     # square, add, two multiplies
     t_bytes, t_ops = nbytes / bw, ops / f32
     g16 = gamma.to(torch.bfloat16)
+    kernel = lambda: rn.rmsnorm(x, gamma, cfg.norm_eps)
+    library = lambda: torch.nn.functional.rms_norm(x, (d,), weight=g16,
+                                                   eps=cfg.norm_eps)
+    dst = torch.empty_like(x)
+    # at this size the event pair around a call mostly holds the host's
+    # dispatch, so the wrapper and F.rms_norm are timed in turns
+    ms, library_ms = paired_ms(kernel, library)
     rows["rmsnorm"] = {
         "shape": [r, d], "bytes": nbytes, "ops": ops,
-        "ms": time_ms(lambda: rn.rmsnorm(x, gamma, cfg.norm_eps)),
+        "ms": ms, "library_ms": library_ms,
         "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, gamma, cfg.norm_eps)),
-        "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
-            x, (d,), weight=g16, eps=cfg.norm_eps)),
         "library": "torch.nn.functional.rms_norm with gamma cast to bf16",
         "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "host_us": host_us(kernel), "library_host_us": host_us(library)}
+    # device time per call: the kernel alone, F.rms_norm's kernels, and a
+    # copy_ of the same activations (2 * r * d * 2 bytes moved), the card's
+    # floor for one pass of that size
+    for key, fn, tag in (("device", kernel, "rmsnorm_kernel"),
+                         ("library_device", library, None),
+                         ("copy_device", lambda: dst.copy_(x), None)):
+        got = device_ms(fn, tag)
+        rows["rmsnorm"][f"{key}_ms"], rows["rmsnorm"][f"{key}_kernels"] = \
+            got if got else (None, None)
+    rows["rmsnorm"]["copy_bytes"] = 2 * x.numel() * x.element_size()
     for name, row in rows.items():
         row["bound_share"] = row["bound_ms"] / row["ms"]
         print(f"    {name}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.4f} "
               f"ms plain, {row['library_ms']:.4f} ms {row['library']}, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
               f"{100 * row['bound_share']:.1f}% of bound")
+    row = rows["rmsnorm"]
+    if row["device_ms"] is None:
+        print("    rmsnorm device times: the profiler recorded no device "
+              "activity; not measured")
+    else:
+        print(f"    rmsnorm by device time a call: kernel "
+              f"{row['device_ms'] * 1e3:.3f} us "
+              f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound), "
+              f"F.rms_norm {row['library_device_ms'] * 1e3:.3f} us in "
+              f"{row['library_device_kernels']:g} kernel(s), copy_ of "
+              f"{row['copy_bytes']} bytes {row['copy_device_ms'] * 1e3:.3f} us")
+    print(f"    rmsnorm host time a call (dispatch): wrapper "
+          f"{row['host_us']:.2f} us, F.rms_norm {row['library_host_us']:.2f} us")
     return rows
 
 
@@ -1096,7 +1234,7 @@ def main() -> None:
             "max_abs_err": codec_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "equal_plain": True})
+            "device_ms": row["device_ms"], "equal_plain": True})
     for name, replaces, exact in (
             ("fused_sgd", "src/repro/kernels/fused_sgd.py:29", True),
             ("rmsnorm", "src/repro/kernels/rmsnorm.py:25", False)):
@@ -1109,6 +1247,10 @@ def main() -> None:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "equal_plain": exact})
+    norm = lm_rows["rmsnorm"]
+    kernels[-1].update({"device_ms": norm["device_ms"],
+                        "library_device_ms": norm["library_device_ms"],
+                        "copy_device_ms": norm["copy_device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

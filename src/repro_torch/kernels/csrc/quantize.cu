@@ -21,6 +21,13 @@
 // load as 0 (they cannot raise amax) and are not stored. amax is a max, so
 // the order of the block reduction does not change it.
 //
+// Non-finite tiles follow the reference (np.max and jnp.max propagate NaN):
+// amax is the largest bit pattern of |x| taken as an unsigned integer, which
+// orders every finite value and inf as floats do and puts every NaN above
+// inf, so a tile that holds a NaN has a NaN amax, fails `amax > 0` and takes
+// scale 1.0. A NaN quotient (a NaN element, or inf / inf in a tile whose
+// amax is inf) codes to 0, as the mirror's cast does; +-inf clip to +-127.
+//
 // Bits: every operation is a round-to-nearest intrinsic (__fdiv_rn; rintf
 // rounds half to even like jnp.round and np.rint), so the codes and scales
 // equal the reference's numpy mirror and Pallas kernel bit for bit. Loads
@@ -43,26 +50,24 @@ constexpr int kDqEpt = 4;       // dequantize elements per thread, strided
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const float* __restrict__ x, int64_t n, int8_t* __restrict__ codes,
                 float* __restrict__ scales) {
-  __shared__ float warp_max[kWarps];
+  __shared__ unsigned warp_max[kWarps];
   const int64_t base = (int64_t)blockIdx.x * kTile;
   const int t = threadIdx.x;
 
   float v[kEpt];
-  float amax = 0.0f;
+  unsigned abits = 0;              // max of |x|'s bit patterns; NaN > inf
 #pragma unroll
   for (int k = 0; k < kEpt; ++k) {
     const int64_t i = base + k * kThreads + t;
     v[k] = i < n ? x[i] : 0.0f;
-    amax = fmaxf(amax, fabsf(v[k]));
+    abits = max(abits, __float_as_uint(v[k]) & 0x7fffffffu);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if ((t & 31) == 0) warp_max[t >> 5] = amax;
+  abits = __reduce_max_sync(0xffffffffu, abits);
+  if ((t & 31) == 0) warp_max[t >> 5] = abits;
   __syncthreads();
-  amax = warp_max[0];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, warp_max[w]);
+  for (int w = 0; w < kWarps; ++w) abits = max(abits, warp_max[w]);
+  const float amax = __uint_as_float(abits);
 
   const float scale = amax > 0.0f ? __fdiv_rn(amax, kQmax) : 1.0f;
   if (t == 0) scales[blockIdx.x] = scale;
@@ -70,7 +75,8 @@ quantize_kernel(const float* __restrict__ x, int64_t n, int8_t* __restrict__ cod
   for (int k = 0; k < kEpt; ++k) {
     const int64_t i = base + k * kThreads + t;
     if (i < n) {
-      const float q = fminf(fmaxf(rintf(__fdiv_rn(v[k], scale)), -kQmax), kQmax);
+      const float r = rintf(__fdiv_rn(v[k], scale));
+      const float q = r != r ? 0.0f : fminf(fmaxf(r, -kQmax), kQmax);
       codes[i] = (int8_t)(int)q;
     }
   }

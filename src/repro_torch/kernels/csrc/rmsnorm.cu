@@ -5,19 +5,31 @@
 // d_model in VMEM: var = mean(x^2) per row, out = x * rsqrt(var + eps) *
 // gamma in f32, cast to x's type.
 //
-// Here one block normalises one row (d <= 8192). Each of 256 threads sums
-// the squares of a strided part of the row in f32; the partial sums are
-// reduced with warp shuffles and then across the 8 warps in shared memory,
-// in a fixed order, so every thread reads the same total. Then each thread
-// writes its part of the output: (x * r) * gamma, r = rsqrtf(var + eps),
-// var = sum / d with an IEEE divide. r is also written per row (f32), for
-// the backward pass, which is plain PyTorch.
+// Bound: device-memory bytes, one read of x and gamma and one write of the
+// output and the per-row rstd: 4,204,544 bytes, 1.255 us at 3.35 TB/s, at
+// the trainer's (512, 2048) bf16 with f32 gamma. At that size a call is
+// short enough that latency decides its time, so the design keeps the
+// chain from the first load to the last store short:
 //
-// Bound: device-memory bytes for large inputs (one read of x and gamma, one
-// write of the output); at the trainer's (512, 2048) bf16 the call is bound
-// by the launch. The second pass re-reads the row, which a block of 8 KB or
-// less finds in L1/L2. Loads are scalar and need no alignment beyond their
-// type.
+// * One block a row, 128 threads up to d = 2048 (16 values a thread) and
+//   256 above, up to d = 8192 (32 values a thread): 512 rows are 512
+//   blocks over all 132 SMs, several blocks each.
+// * The row is read once, into registers, every load issued at once; so is
+//   the thread's part of gamma, straight into registers (one row a block
+//   reads gamma once per block). Staging gamma through shared memory for
+//   several rows a block put a load, a store and a barrier before the
+//   first output and was slower.
+// * Loads and stores of x and the output are 16 bytes wide (8 bf16 or 4
+//   f32) when x's start, its row stride in bytes and d * itemsize allow it,
+//   and element by element otherwise; gamma is read 16 (or 8) bytes at a
+//   time when it is aligned with unit stride. No input is copied; rows may
+//   be strided (stride(1) must be 1).
+// * The sum of squares: four partial sums a thread, warp shuffles, then the
+//   warp sums through shared memory in a fixed order (the one barrier).
+//
+// r = rsqrtf(var + eps), var = sum / d with an IEEE divide, out = (x * r) *
+// gamma; r is also written per row (f32) for the backward pass, which is
+// plain PyTorch.
 //
 // Numbers: the sum is taken in a different order than torch.mean's, so the
 // result agrees with the plain version to a tolerance, not bit for bit.
@@ -29,9 +41,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 8192;
+constexpr int kSmallD = 2048;       // 128 threads a row up to this d
+constexpr int kSmallThreads = 128;
+constexpr int kLargeThreads = 256;  // 256 above it
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -42,65 +55,181 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-template <typename X, typename G>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const X* __restrict__ x, const G* __restrict__ gamma, X* __restrict__ out,
-               float* __restrict__ rstd, int d, float eps) {
-  __shared__ float warp_sum[kWarps];
-  const int64_t row = blockIdx.x;
-  const X* xr = x + row * d;
-  X* yr = out + row * d;
-  const int t = threadIdx.x;
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
-  float s = 0.0f;
-  for (int j = t; j < d; j += kThreads) {
-    const float v = to_f32(xr[j]);
-    s = __fadd_rn(s, __fmul_rn(v, v));
+// 16 bytes of X <-> W floats
+__device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
+  f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* f, __nv_bfloat16) {
+  f[0] = bf16_lo(u.x); f[1] = bf16_hi(u.x); f[2] = bf16_lo(u.y); f[3] = bf16_hi(u.y);
+  f[4] = bf16_lo(u.z); f[5] = bf16_hi(u.z); f[6] = bf16_lo(u.w); f[7] = bf16_hi(u.w);
+}
+__device__ __forceinline__ uint4 pack(const float* f, float) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+__device__ __forceinline__ uint4 pack(const float* f, __nv_bfloat16) {
+  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                    pack2(f[6], f[7]));
+}
+
+// gamma[j .. j + W) as f32: W-wide loads when g_vec (unit stride, 16-byte
+// aligned start; j is a multiple of W), element by element otherwise.
+template <int W>
+__device__ __forceinline__ void load_gamma(const void* __restrict__ gamma, int g_bf16,
+                                           int g_vec, int64_t g_stride, int j, float* f) {
+  const float* gf = reinterpret_cast<const float*>(gamma);
+  const __nv_bfloat16* gb = reinterpret_cast<const __nv_bfloat16*>(gamma);
+  if constexpr (W > 1) {
+    if (g_vec) {
+      if (g_bf16) {
+        if constexpr (W == 8) {
+          unpack(*reinterpret_cast<const uint4*>(gb + j), f, __nv_bfloat16());
+        } else {
+          const uint2 u = *reinterpret_cast<const uint2*>(gb + j);
+          f[0] = bf16_lo(u.x); f[1] = bf16_hi(u.x); f[2] = bf16_lo(u.y); f[3] = bf16_hi(u.y);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < W; c += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(gf + j + c);
+          f[c] = q.x; f[c + 1] = q.y; f[c + 2] = q.z; f[c + 3] = q.w;
+        }
+      }
+      return;
+    }
   }
+#pragma unroll
+  for (int c = 0; c < W; ++c)
+    f[c] = g_bf16 ? __bfloat162float(gb[(j + c) * g_stride]) : gf[(j + c) * g_stride];
+}
+
+// One block of TPR threads a row, VPT values a thread at most; VEC: 16-byte
+// loads and stores of x and the output.
+template <typename X, int TPR, int VPT, bool VEC>
+__global__ void __launch_bounds__(TPR)
+rmsnorm_kernel(const X* __restrict__ x, int64_t x_stride, const void* __restrict__ gamma,
+               int g_bf16, int g_vec, int64_t g_stride, X* __restrict__ out,
+               float* __restrict__ rstd, int d, float eps) {
+  __shared__ float warp_sum[TPR / 32];
+  constexpr int W = VEC ? 16 / (int)sizeof(X) : 1;  // elements a load
+  constexpr int NL = VPT / W;                       // loads a thread
+  const int t = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const X* xr = x + row * x_stride;
+
+  // element j = (t + TPR * i) * W + c of the row is v[i * W + c]
+  float v[VPT], gm[VPT];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int j = (t + TPR * i) * W;
+    if (j < d) {
+      if constexpr (VEC) {
+        unpack(*reinterpret_cast<const uint4*>(xr + j), v + i * W, X());
+      } else {
+        v[i] = to_f32(xr[j]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < W; ++c) v[i * W + c] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int j = (t + TPR * i) * W;
+    if (j < d) load_gamma<W>(gamma, g_bf16, g_vec, g_stride, j, gm + i * W);
+  }
+
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < VPT; k += 4) {
+    s0 = __fadd_rn(s0, __fmul_rn(v[k], v[k]));
+    s1 = __fadd_rn(s1, __fmul_rn(v[k + 1], v[k + 1]));
+    s2 = __fadd_rn(s2, __fmul_rn(v[k + 2], v[k + 2]));
+    s3 = __fadd_rn(s3, __fmul_rn(v[k + 3], v[k + 3]));
+  }
+  float s = __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
   if ((t & 31) == 0) warp_sum[t >> 5] = s;
   __syncthreads();
-  float total = warp_sum[0];
+  s = warp_sum[0];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) total = __fadd_rn(total, warp_sum[w]);
+  for (int w = 1; w < TPR / 32; ++w) s = __fadd_rn(s, warp_sum[w]);
 
-  const float var = __fdiv_rn(total, (float)d);
+  const float var = __fdiv_rn(s, (float)d);
   const float r = rsqrtf(__fadd_rn(var, eps));
   if (t == 0 && rstd != nullptr) rstd[row] = r;
-  for (int j = t; j < d; j += kThreads)
-    yr[j] = from_f32<X>(__fmul_rn(__fmul_rn(to_f32(xr[j]), r), to_f32(gamma[j])));
+  X* yr = out + row * (int64_t)d;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int j = (t + TPR * i) * W;
+    if (j < d) {
+      float y[W];
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        y[c] = __fmul_rn(__fmul_rn(v[i * W + c], r), gm[i * W + c]);
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(yr + j) = pack(y, X());
+      } else {
+        yr[j] = from_f32<X>(y[0]);
+      }
+    }
+  }
 }
 
-template <typename X, typename G>
-int launch(const void* x, const void* gamma, void* out, void* rstd, int64_t rows, int d,
-           float eps, cudaStream_t s) {
-  rmsnorm_kernel<X, G><<<(unsigned)rows, kThreads, 0, s>>>(
-      reinterpret_cast<const X*>(x), reinterpret_cast<const G*>(gamma),
-      reinterpret_cast<X*>(out), reinterpret_cast<float*>(rstd), d, eps);
+template <typename X, int TPR, int VPT>
+void run(bool vec, int64_t rows, const void* x, int64_t xs, const void* g, int g_bf16,
+         int g_vec, int64_t gs, void* out, void* rstd, int d, float eps, cudaStream_t s) {
+  const auto kernel =
+      vec ? rmsnorm_kernel<X, TPR, VPT, true> : rmsnorm_kernel<X, TPR, VPT, false>;
+  kernel<<<(unsigned)rows, TPR, 0, s>>>(reinterpret_cast<const X*>(x), xs, g, g_bf16, g_vec,
+                                        gs, reinterpret_cast<X*>(out),
+                                        reinterpret_cast<float*>(rstd), d, eps);
+}
+
+template <typename X>
+int launch(const void* x, int64_t xs, const void* g, int g_bf16, int64_t gs, void* out,
+           void* rstd, int64_t rows, int d, float eps, cudaStream_t s) {
+  constexpr int W = 16 / (int)sizeof(X);
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                   ((xs * (int64_t)sizeof(X)) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0 && d % W == 0;
+  const int g_vec = gs == 1 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  if (d <= kSmallD)
+    run<X, kSmallThreads, kSmallD / kSmallThreads>(vec, rows, x, xs, g, g_bf16, g_vec, gs,
+                                                   out, rstd, d, eps, s);
+  else
+    run<X, kLargeThreads, kMaxD / kLargeThreads>(vec, rows, x, xs, g, g_bf16, g_vec, gs, out,
+                                                 rstd, d, eps, s);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, out: rows * d contiguous elements, f32 (x_bf16 = 0) or bf16 (1); gamma:
-// d elements, f32 (g_bf16 = 0) or bf16 (1); rstd: rows f32, or null. Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for d outside 1..8192 or an unknown type code.
-extern "C" int rmsnorm_launch(const void* x, int x_bf16, const void* gamma, int g_bf16,
-                              void* out, void* rstd, int64_t rows, int d, float eps,
-                              void* stream) {
+// x: rows of d elements, row r at x + r * x_stride (elements), f32 (x_bf16 =
+// 0) or bf16 (1); gamma: d elements g_stride apart, f32 (g_bf16 = 0) or bf16
+// (1); out: rows * d contiguous elements of x's type; rstd: rows f32, or
+// null. Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for d outside 1..8192, too many rows or an unknown
+// type code.
+extern "C" int rmsnorm_launch(const void* x, int x_bf16, int64_t x_stride, const void* gamma,
+                              int g_bf16, int64_t g_stride, void* out, void* rstd,
+                              int64_t rows, int d, float eps, void* stream) {
   if (rows <= 0) return 0;
-  if (d < 1 || d > kMaxD || rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxD || rows > 0x7fffffffLL || (x_bf16 >> 1) || (g_bf16 >> 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (x_bf16 == 0 && g_bf16 == 0)
-    return launch<float, float>(x, gamma, out, rstd, rows, d, eps, s);
-  if (x_bf16 == 0 && g_bf16 == 1)
-    return launch<float, __nv_bfloat16>(x, gamma, out, rstd, rows, d, eps, s);
-  if (x_bf16 == 1 && g_bf16 == 0)
-    return launch<__nv_bfloat16, float>(x, gamma, out, rstd, rows, d, eps, s);
-  if (x_bf16 == 1 && g_bf16 == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, out, rstd, rows, d, eps, s);
-  return (int)cudaErrorInvalidValue;
+  if (x_bf16)
+    return launch<__nv_bfloat16>(x, x_stride, gamma, g_bf16, g_stride, out, rstd, rows, d, eps,
+                                 s);
+  return launch<float>(x, x_stride, gamma, g_bf16, g_stride, out, rstd, rows, d, eps, s);
 }

@@ -33,6 +33,7 @@ there is no other switch. ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -124,14 +125,11 @@ def _check_inputs(nodes, device: torch.device) -> torch.dtype:
     return dtype
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("fedavg_stream")
-    fn = lib.fedavg_fold_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+@functools.cache
+def _launcher():
+    return build.launcher("fedavg_stream", "fedavg_fold_launch",
+                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
 
 
 def _table(nodes, acc: str, device: torch.device):
@@ -167,7 +165,7 @@ def _launch(nodes, acc: str, device: torch.device) -> list[torch.Tensor]:
     """One kernel launch over ``nodes`` (at most ``_MAX_NODES``)."""
     global LAUNCHES
     dtype = _check_inputs(nodes, device)
-    lib = _library()
+    launch = _launcher()
     table, outs, max_len = _table(nodes, acc, device)
     n, n_slots = len(nodes), sum(len(inputs) for inputs, _ in nodes)
     if max_len == 0:
@@ -175,9 +173,8 @@ def _launch(nodes, acc: str, device: torch.device) -> list[torch.Tensor]:
     # freed on return: the caching allocator hands the block out again only
     # to work queued on this stream after the launch
     dev_table = torch.from_numpy(table).to(device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.fedavg_fold_launch(dev_table.data_ptr(), n, n_slots, max_len,
-                                int(dtype == torch.bfloat16), stream)
+    rc = launch(dev_table.data_ptr(), n, n_slots, max_len,
+                int(dtype == torch.bfloat16), build.raw_stream(device.index))
     if rc != 0:
         raise RuntimeError(f"fedavg_stream kernel launch failed: CUDA error "
                            f"{rc}")

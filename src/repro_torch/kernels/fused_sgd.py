@@ -25,6 +25,7 @@ of an f32 op.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,15 +63,12 @@ def _check(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"no fused_sgd kernel for device {p.device}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("fused_sgd")
-    if lib.fused_sgd_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fused_sgd_launch.argtypes = [ptr, i32, ptr, i32, ptr,
-                                         ctypes.c_int64, ctypes.c_float,
-                                         ctypes.c_float, ptr]
-        lib.fused_sgd_launch.restype = ctypes.c_int
-    return lib
+@functools.cache
+def _launcher():
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return build.launcher("fused_sgd", "fused_sgd_launch",
+                          [ptr, i32, ptr, i32, ptr, ctypes.c_int64,
+                           ctypes.c_float, ctypes.c_float, ptr])
 
 
 def fused_sgd(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
@@ -88,10 +86,9 @@ def fused_sgd(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     n = p.numel()
     if n == 0:
         return p, v
-    rc = _library().fused_sgd_launch(
+    rc = _launcher()(
         p.data_ptr(), _TYPES[p.dtype], g.data_ptr(), _TYPES[g.dtype],
-        v.data_ptr(), n, lr, momentum,
-        torch.cuda.current_stream(p.device).cuda_stream)
+        v.data_ptr(), n, lr, momentum, build.raw_stream(p.device.index))
     if rc != 0:
         raise RuntimeError(f"fused_sgd kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -7,10 +7,12 @@ wrappers ``qsgd_compress`` / ``qsgd_decompress`` (``repro/kernels/ops.py``).
 
 A tile is ``TILE`` = 32 × 128 = 4096 consecutive elements of a flat f32
 vector, the last one zero-padded. Per tile: ``amax = max|x|``, ``scale =
-amax / 127`` (1.0 when ``amax`` is 0), ``codes = clip(round(x / scale),
-±127)`` as int8, rounding half to even. Codes keep the input's length and
-scales are one f32 per tile: the layout of the reference's wire payload.
-Dequantize computes ``f32(code) · scale`` over any range ``[start, stop)``.
+amax / 127`` (1.0 when ``amax`` is 0 or NaN), ``codes = clip(round(x /
+scale), ±127)`` as int8, rounding half to even; a NaN quotient codes to
+0. A NaN anywhere in a tile makes its ``amax`` NaN, as ``np.max`` does.
+Codes keep the input's length and scales are one f32 per tile: the layout
+of the reference's wire payload. Dequantize computes ``f32(code) · scale``
+over any range ``[start, stop)``.
 
 Both kernels (``csrc/quantize.cu``) are bound by device-memory bytes:
 quantize reads 4 and writes 1 byte per element, dequantize the reverse.
@@ -25,6 +27,7 @@ count kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -70,6 +73,9 @@ def quantize_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scales = torch.where(amax > 0, amax / f32_scalar(QMAX, x.device),
                          f32_scalar(1.0, x.device))
     q = torch.clamp(torch.round(tiles / scales[:, None]), -QMAX, QMAX)
+    # a NaN quotient codes to 0, as the reference's numpy cast gives; the
+    # float-to-int8 cast alone leaves NaN to the platform
+    q = torch.nan_to_num(q, nan=0.0)
     return q.to(torch.int8).reshape(-1)[:n], scales
 
 
@@ -91,15 +97,14 @@ def _check_vector(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("quantize")
-    if lib.qsgd_quantize_launch.argtypes is None:
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.qsgd_quantize_launch.argtypes = [p, i64, p, p, p]
-        lib.qsgd_quantize_launch.restype = ctypes.c_int
-        lib.qsgd_dequantize_launch.argtypes = [p, p, i64, i64, p, p]
-        lib.qsgd_dequantize_launch.restype = ctypes.c_int
-    return lib
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_ARGTYPES = {"qsgd_quantize_launch": [_P, _I64, _P, _P, _P],
+             "qsgd_dequantize_launch": [_P, _P, _I64, _I64, _P, _P]}
+
+
+@functools.cache
+def _launcher(symbol: str):
+    return build.launcher("quantize", symbol, _ARGTYPES[symbol])
 
 
 def _route(x: torch.Tensor) -> str:
@@ -121,10 +126,9 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scales = torch.empty(tiles_of(n), dtype=torch.float32, device=x.device)
     if n == 0:
         return codes, scales
-    lib = _library()
-    rc = lib.qsgd_quantize_launch(
+    rc = _launcher("qsgd_quantize_launch")(
         x.data_ptr(), n, codes.data_ptr(), scales.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        build.raw_stream(x.device.index))
     if rc != 0:
         raise RuntimeError(f"quantize kernel launch failed: CUDA error {rc}")
     QUANTIZE_LAUNCHES += 1
@@ -154,10 +158,9 @@ def dequantize(codes: torch.Tensor, scales: torch.Tensor, start: int = 0,
     out = torch.empty(stop - start, dtype=torch.float32, device=codes.device)
     if stop == start:
         return out
-    lib = _library()
-    rc = lib.qsgd_dequantize_launch(
+    rc = _launcher("qsgd_dequantize_launch")(
         codes.data_ptr(), scales.data_ptr(), start, stop - start,
-        out.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream)
+        out.data_ptr(), build.raw_stream(codes.device.index))
     if rc != 0:
         raise RuntimeError(f"dequantize kernel launch failed: CUDA error "
                            f"{rc}")

@@ -11,9 +11,17 @@ then ``mid = 0.5 · (lo + hi)`` and ``lo = mid`` while at least ``k``
 elements have ``|x| >= mid``, else ``hi = mid``. Every element with
 ``|x| < lo`` is zeroed; ties at the threshold may keep more than ``k``.
 
+A tile that holds a NaN has a NaN ``hi``, so no count reaches ``k``,
+``lo`` stays 0, every non-NaN element is kept and NaN is zeroed, as in the
+reference's numpy mirror.
+
 The kernel (``csrc/topk_sparsify.cu``) is bound by device-memory bytes: it
-reads and writes 4 bytes per element, one block per tile with the tile in
-registers, so the 24 counting passes never touch device memory.
+reads and writes 4 bytes per element. A persistent grid walks the tiles;
+each block streams its next tile into shared memory (16-byte ``cp.async``)
+while it searches the current one from registers, and once at most 256
+elements can still fall on either side of a ``mid``, one warp finishes the
+24 steps on those alone. Each step is decided by the same exact count as
+the plain version's, so the two agree bit for bit.
 
 :func:`topk_sparsify` launches the kernel for a CUDA tensor and runs
 :func:`topk_plain` for a CPU tensor; any other device raises. ``LAUNCHES``
@@ -22,6 +30,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,14 +61,11 @@ def topk_plain(x: torch.Tensor, k_per_block: int) -> torch.Tensor:
     return dense.reshape(-1)[:n]
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("topk_sparsify")
-    fn = lib.topk_sparsify_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+@functools.cache
+def _launcher():
+    return build.launcher("topk_sparsify", "topk_sparsify_launch",
+                          [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p])
 
 
 def topk_sparsify(x: torch.Tensor, k_per_block: int) -> torch.Tensor:
@@ -72,13 +78,11 @@ def topk_sparsify(x: torch.Tensor, k_per_block: int) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no topk kernel for device {x.device}")
     n = int(x.shape[0])
-    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
     if n == 0:
         return out
-    lib = _library()
-    rc = lib.topk_sparsify_launch(
-        x.data_ptr(), n, int(k_per_block), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _launcher()(x.data_ptr(), n, int(k_per_block), out.data_ptr(),
+                     build.raw_stream(x.device.index))
     if rc != 0:
         raise RuntimeError(f"topk kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -11,8 +11,10 @@ held bit for bit against the reference on the same seeded numpy inputs:
 
 Then the cases where rounding and tiling show: exact .5 quotients (half to
 even), an all-zero tile, a tile with fewer than k nonzeros, -0.0,
-subnormals and values near the f32 maximum. The CUDA kernels are held
-against the plain versions on a card, in `test_torch_cuda.py`.
+subnormals, values near the f32 maximum, and tiles with NaN and ±inf. A
+numpy model of the CUDA top-k kernel's narrowed search is held bit for bit
+against the reference's mirror. The CUDA kernels are held against the
+plain versions on a card, in `test_torch_cuda.py`.
 """
 import numpy as np
 import pytest
@@ -63,10 +65,21 @@ def _special(case):
              * rng.choice([-1.0, 1.0], 2 * TILE + 9)).astype(np.float32)
         x[5] = np.finfo(np.float32).max
         return x
+    if case == "nonfinite":
+        # tile 0: NaN, +inf and -inf (amax NaN: scale 1, top-k keeps every
+        # non-NaN); tile 1: clean; tile 2: ±inf without NaN (amax inf, so
+        # inf / inf quotients); ragged tile 3: one NaN
+        x = rng.standard_normal(3 * TILE + 33).astype(np.float32)
+        x[[5, 700]] = np.nan
+        x[9], x[100] = np.inf, -np.inf
+        x[2 * TILE + 7], x[2 * TILE + 8] = np.inf, -np.inf
+        x[3 * TILE + 4] = np.nan
+        return x
     raise ValueError(case)
 
 
-SPECIAL = ("half_to_even", "zero_tiles", "subnormal", "near_f32_max")
+SPECIAL = ("half_to_even", "zero_tiles", "subnormal", "near_f32_max",
+           "nonfinite")
 
 
 def _bits(a):
@@ -125,6 +138,83 @@ def test_topk_plain_bit_equal_numpy_mirror(case):
     with np.errstate(over="ignore"):
         want = ref_wc.get_codec("topk")._sparsify(x)
     _assert_bits(tk.topk_plain(torch.from_numpy(x), K).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA top-k kernel's narrowed search == the reference's bisection
+# ---------------------------------------------------------------------------
+
+def _narrowed_topk(x, k, cap=256):
+    """The search of `csrc/topk_sparsify.cu`, tile by tile in numpy: the
+    reference's bisection, but once at most ``cap`` positive |x| lie in
+    [lo, hi) the remaining steps count ``c(hi) + count(list >= mid)`` over
+    those alone. While hi has not moved the list is every positive |x| >=
+    lo and c(hi) is 0; a moved hi above 1e38 (lo + hi could overflow)
+    keeps the steps tile-wide. amax is the largest bit pattern of |x| (NaN
+    above inf). Returns the dense output and the tile-wide steps of each
+    tile."""
+    tiles = ref_wc._pad_tiles(x)
+    out = np.empty_like(tiles)
+    steps = []
+    half, zero = np.float32(0.5), np.float32(0.0)
+    least = np.array(1, np.int32).view(np.float32)[()]    # least subnormal
+    for r, tile in enumerate(tiles):
+        a = np.abs(tile)
+        amax = np.array((tile.view(np.uint32) & np.uint32(0x7fffffff)).max()
+                        ).view(np.float32)[()]
+        lo, hi = zero, amax + np.float32(1e-12)
+        c_lo, c_hi, moved, it = int((a > 0).sum()), 0, False, 0
+        if np.isnan(amax):
+            lo, it = (amax if k <= 0 else zero), ref_wc.BISECT_ITERS
+        while it < ref_wc.BISECT_ITERS and (c_lo - c_hi > cap
+                                            or (moved and hi > 1e38)):
+            mid = half * (lo + hi)
+            count = int((a >= mid).sum())
+            if count >= k:
+                lo, c_lo = mid, count
+            else:
+                hi, c_hi, moved = mid, count, True
+            it += 1
+        steps.append(it)
+        if it < ref_wc.BISECT_ITERS:
+            bound = hi if moved else np.float32(np.nan)
+            cand = a[(a >= max(lo, least)) & ~(a >= bound)]
+            assert cand.size <= cap
+            for _ in range(it, ref_wc.BISECT_ITERS):
+                mid = half * (lo + hi)
+                if c_hi + int((cand >= mid).sum()) >= k:
+                    lo = mid
+                else:
+                    hi = mid
+        out[r] = np.where(a >= lo, tile, zero)
+    return out.reshape(-1)[:x.size], steps
+
+
+def _narrowing_input(case):
+    rng = np.random.default_rng(17)
+    if case == "heavy_tail":          # amax far above the threshold
+        return rng.standard_cauchy(3 * TILE + 5).astype(np.float32)
+    if case == "ties":                # few distinct magnitudes
+        return np.round(rng.standard_normal(2 * TILE) * 4).astype(np.float32)
+    return _inputs(case)
+
+
+@pytest.mark.parametrize("k", [K, 1, 4_096, 0])
+@pytest.mark.parametrize("case", CASES + ("heavy_tail", "ties"))
+def test_narrowed_topk_bit_equal_bisection(case, k):
+    """Bit for bit against the mirror at its k, and against the plain
+    version (itself held to the mirror above) at the other k."""
+    x = _narrowing_input(case)
+    with np.errstate(over="ignore", invalid="ignore"):
+        got, steps = _narrowed_topk(x, k)
+        if k == K:
+            want = ref_wc.get_codec("topk")._sparsify(x)
+        else:
+            want = tk.topk_plain(torch.from_numpy(x), k).numpy()
+    _assert_bits(got, want)
+    if case in (5_003, 12_288) and k == K:
+        # whole Gaussian tiles narrow after a few block-wide steps
+        assert max(steps[:x.size // TILE]) <= 4
 
 
 # ---------------------------------------------------------------------------

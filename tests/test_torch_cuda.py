@@ -79,7 +79,8 @@ def test_batched_round_on_card_launches_kernel(topology):
     assert smoke.avg_hash(on_card.avg_flat) == smoke.avg_hash(on_cpu.avg_flat)
 
 
-CODEC_CASES = ["shard", "short", "misaligned", "zero_tiles", "half_to_even"]
+CODEC_CASES = ["shard", "short", "misaligned", "zero_tiles", "half_to_even",
+               "nonfinite", "few_tiles", "heavy_tail", "ties"]
 
 
 def _codec_input(case):
@@ -91,6 +92,22 @@ def _codec_input(case):
         return rnd(100)
     if case == "misaligned":
         return rnd(100_003)[3:]
+    if case == "nonfinite":
+        # tile 0: NaN, +inf and -inf; tile 1 clean; tile 2: ±inf without
+        # NaN; ragged tile 3: a NaN
+        x = rnd(3 * 4096 + 33)
+        x[5] = x[700] = float("nan")
+        x[9], x[100] = float("inf"), float("-inf")
+        x[2 * 4096 + 7], x[2 * 4096 + 8] = float("inf"), float("-inf")
+        x[3 * 4096 + 4] = float("nan")
+        return x
+    if case == "few_tiles":             # fewer tiles than SMs
+        return rnd(50 * 4096 + 1234)
+    if case == "heavy_tail":            # Cauchy: several block-wide steps
+        u = torch.rand(300_007, generator=g, device="cuda")
+        return torch.tan(torch.pi * (u - 0.5))
+    if case == "ties":                  # few distinct magnitudes
+        return torch.round(rnd(200_000) * 4)
     if case == "zero_tiles":
         x = rnd(4 * 4096 + 17)
         x[4096:3 * 4096] = 0.0
@@ -132,6 +149,22 @@ def test_codec_kernels_bit_equal_plain_on_card(case):
     assert torch.equal(_bits(part), _bits(q.dequantize_plain(
         want_codes, want_scales, n // 3, n - 1)))
     assert torch.equal(_bits(dense), _bits(tk.topk_plain(x, 128)))
+
+
+@pytest.mark.cuda
+def test_topk_whole_vgg16_gradient_on_card():
+    """The whole VGG-16 gradient, 134 M elements in 32,715 tiles, through
+    the persistent grid, bit for bit."""
+    _need_card()
+    from repro_torch.configs.paper_workloads import VGG16
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(VGG16.params, generator=g, device="cuda")
+    assert (x.numel() + 4095) // 4096 == 32_715
+    before = tk.LAUNCHES
+    got = tk.topk_sparsify(x, 128)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
+    assert torch.equal(_bits(got), _bits(tk.topk_plain(x, 128)))
 
 
 @pytest.mark.cuda
@@ -239,6 +272,70 @@ def test_rmsnorm_within_tolerance_of_plain_on_card(d, x_dtype, g_dtype):
         torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
     else:
         assert _bf16_ulps(out, want) <= 1
+
+
+NORM_CASES = ["misaligned", "strided_rows", "d2047_bf16", "d8191_f32",
+              "rows1", "path_shape"]
+
+
+def _norm_input(case):
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    if case == "misaligned":            # a view 2 bf16 past an aligned start
+        x = rnd(513 * 2048).bfloat16()[2:2 + 512 * 2048].reshape(512, 2048)
+        assert x.data_ptr() % 16 != 0
+        return x, rnd(2048)
+    if case == "strided_rows":          # rows 2056 apart, read in place
+        return rnd(300, 2056).bfloat16()[:, :2048], rnd(2048)
+    if case == "d2047_bf16":            # no 16-byte width
+        return rnd(129, 2047).bfloat16(), rnd(2047)
+    if case == "d8191_f32":
+        return rnd(33, 8191), rnd(8191).bfloat16()
+    if case == "rows1":
+        return rnd(1, 2048).bfloat16(), rnd(2048)
+    return rnd(512, 2048).bfloat16(), rnd(2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NORM_CASES)
+def test_rmsnorm_edge_cases_within_tolerance_on_card(case):
+    _need_card()
+    x, gamma = _norm_input(case)
+    ptr = x.data_ptr()
+    before = rn.LAUNCHES
+    out, rstd = rn.rmsnorm(x, gamma)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES == before + 1 and x.data_ptr() == ptr
+    want, want_rstd = rn.rmsnorm_plain(x, gamma)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    else:
+        assert _bf16_ulps(out, want) <= 1
+
+
+@pytest.mark.cuda
+def test_rmsnorm_skips_zero_rows_on_card():
+    _need_card()
+    before = rn.LAUNCHES
+    out, rstd = rn.rmsnorm(torch.empty(0, 2048, device="cuda"),
+                           torch.ones(2048, device="cuda"))
+    assert out.shape == (0, 2048) and rstd.shape == (0,)
+    assert rn.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_rmsnorm_raises_on_what_the_kernel_does_not_take_on_card():
+    _need_card()
+    x = torch.zeros(4, 16, device="cuda")
+    with pytest.raises(ValueError, match="stride"):
+        rn.rmsnorm(x.t().contiguous().t(), torch.ones(16, device="cuda"))
+    with pytest.raises(ValueError):
+        rn.rmsnorm(torch.zeros(2, 8193, device="cuda"),
+                   torch.ones(8193, device="cuda"))
+    with pytest.raises(ValueError):
+        rn.rmsnorm(x, torch.ones(16))
 
 
 @pytest.mark.cuda
