@@ -24,7 +24,9 @@ Phases, each fatal on failure:
    read as JSON) recomputed on the card: 168 keys across topology × engine
    × schedule and the ``readahead_k`` sweeps, and the 36 wire-codec keys;
    then every engine at N = 12 on the card against the CPU, under every
-   codec;
+   codec; then the 159 keys of the faults, plugin-topology and population
+   groups (``sharded_tree``, ``sharded_tree_equals_lambda_fl``, ``fault``,
+   ``robust``, ``geo_tiered``, ``population``): 363 of the file's 366;
 5. full width: GradsSharding, λ-FL and LIFL rounds through
    ``FederatedSession(..., engine="batched", device="cuda")`` on 20 VGG-16
    gradients made on the card from a seed; the launch counter must grow,
@@ -65,7 +67,31 @@ Phases, each fatal on failure:
    under ``torch.profiler``, beside the device time of a ``copy_`` of the
    same activations (the card's floor for one pass of that size); then one
    local step under ``torch.profiler`` (device time by kernel, the
-   device's idle share).
+   device's idle share);
+8. faulty, stale and hedged GradsSharding rounds on the VGG-16 gradients
+   (drawn again from the seed): the reference's fault rows (partial
+   participation, quorum, deadline), 3-round sessions with stale re-entry
+   under polynomial staleness weights and with and without hedging (at
+   the gate's factor 1.2 and at 1.05, which must fire at this width); the
+   batched engine (the fold kernel) against the streaming engine (plain
+   torch ops) on the card bit for bit, accounting alike, at least one
+   stale weight other than 1.0 folded by the kernel, each hedged mean
+   equal to its unhedged twin;
+9. ``sharded_tree`` and ``geo_tiered`` at the same width, barrier and
+   pipelined, batched against streaming bit for bit, and ``sharded_tree``'s
+   mean equal to ``lambda_fl``'s;
+10. the population engine: the CI scale job's round (``geo_tiered``, N =
+   10^5, K = 4,096, its faults and upload model) and GradsSharding rounds
+   at N = 10^5 and 10^6 (``benchmarks/scale_bench.py``'s upload model and
+   lifted timeout), their folds in the kernel's carry form (one launch a
+   512-row chunk), each mean bit for bit against the plain chunked fold of
+   the same rows on the card; host wall, host RSS peak of the round and
+   device peak, which must stay within four chunks and not grow with N;
+   then one carry launch at the population's shape, f32 and f64, beside
+   its bound, its plain version and ``torch.sum`` over the chunk;
+11. one population round under ``qsgd8`` (N = 64, GradsSharding and
+   ``geo_tiered``): the codec kernels run through the population's decode
+   and the round equals the eager round over the materialized cohort.
 
 The last lines are a JSON object of timings and walls, a JSON ``kernels``
 line, and ``{"ok": true, "device": {...}}``.
@@ -93,6 +119,8 @@ REPS = 7                 # timed launches per wave, after a warm-up
 PROFILED_CALLS = 50      # calls per device-time reading under the profiler
 SLICE = 1_000_000        # host numpy check of the round's mean
 TOPOLOGIES = ("gradssharding", "lambda_fl", "lifl")
+NEW_GROUPS = ("sharded_tree", "sharded_tree_equals_lambda_fl", "fault",
+              "robust", "geo_tiered", "population")
 SOURCES = ("fedavg_stream", "quantize", "topk_sparsify", "fused_sgd",
            "rmsnorm")
 LOSSY = ("fp16", "qsgd8", "topk")
@@ -540,6 +568,25 @@ def phase_pinned(fs, smoke, FederatedSession):
     print(f"    N=12: {len(LOSSY) * len(TOPOLOGIES) * len(smoke.ENGINES)} "
           f"codec × topology × engine rounds on cuda equal the CPU's, "
           f"hashes and codec_error included")
+
+    # the groups of the faults, plugin-topology and population slice
+    t0 = time.perf_counter()
+    got_new = smoke.sharded_tree_invariants(
+        "cuda", lambda_fl_hashes=smoke.grid_hashes(got, "lambda_fl"))
+    for invariants in (smoke.fault_invariants, smoke.robust_invariants,
+                       smoke.geo_invariants, smoke.population_invariants):
+        got_new.update(invariants("cuda"))
+    expected = smoke.expected_invariants(groups=NEW_GROUPS)
+    bad = smoke.mismatches(got_new, expected)
+    if len(expected) != 159 or set(got_new) != set(expected) or bad:
+        fail(f"{len(bad)} of {len(expected)} pinned fault, robust, "
+             f"sharded_tree, geo_tiered and population keys differ on the "
+             f"card:\n" + "\n".join(bad[:20]))
+    total = len(smoke.expected_invariants(groups=smoke.GROUPS))
+    print(f"    pinned sharded_tree, fault, robust, geo_tiered and "
+          f"population keys on cuda: {len(expected)}/{len(expected)} "
+          f"equal expected_smoke.json ({time.perf_counter() - t0:.1f} s); "
+          f"{total} keys in all")
 
 
 def phase_full_width(fs, grads, cm, plan_uniform, FederatedSession, peak):
@@ -1147,6 +1194,429 @@ def phase_lm_profile(models, data, cfg, params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-11: faults, plugin topologies and the population engine
+# ---------------------------------------------------------------------------
+
+# the smoke gate's upload model without its 16 Mbit/s link: at 134 M
+# elements every upload would take over a minute, and the 2-4 s deadlines
+# of the fault rows would cut every client
+FULL_UPLOAD = dict(jitter_s=3.0, rate_jitter=0.5, seed=11)
+STALE_ROUNDS = 3
+# the smoke gate's factor, and one a backoff chain overruns at this width:
+# a VGG-16 shard's fold is expected to take ~20 s, so 1.2 waits ~4 s past
+# it, longer than the 2 s retry backoff delays a failed primary
+HEDGE_FACTORS = (1.2, 1.05)
+POP_CI = dict(n=100_000, seed=1, participation_k=4_096,
+              faults=dict(seed=7, dropout_rate=0.05, failure_rate=0.1),
+              upload=dict(mbps=16.0, jitter_s=3.0, seed=11))
+POP_NS = (100_000, 1_000_000)      # benchmarks/scale_bench.py's two largest
+POP_GRAD_ELEMS = 4_096
+# benchmarks/scale_bench.py's upload model and lifted Lambda timeout
+POP_UPLOAD = dict(mbps=16.0, jitter_s=3.0, rate_jitter=0.5, compute_s=2.0,
+                  compute_jitter=1.0, seed=11)
+POP_TIMEOUT_S = 10_000_000
+CODEC_POP_N = 64
+
+
+class _KernelWeights:
+    """Wraps ``fold_nodes`` for one phase: records the weights of every
+    weighted node a CUDA launch folds (the engine looks the function up at
+    call time), and restores the wrapper on exit."""
+
+    def __init__(self, fs):
+        self.fs, self.real, self.weights = fs, fs.fold_nodes, []
+
+    def __enter__(self):
+        def counting(nodes, acc="f64", **kw):
+            nodes = list(nodes)
+            if nodes and nodes[0][0][0].device.type == "cuda":
+                self.weights.extend(w for _x, w in nodes if w is not None)
+            return self.real(nodes, acc, **kw)
+        self.fs.fold_nodes = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.fs.fold_nodes = self.real
+
+    @property
+    def non_unit(self) -> int:
+        return sum(1 for ws in self.weights for w in ws if w != 1.0)
+
+
+def _same_round(label, a, b, check_bits=True):
+    """Two engines' results of one round: the mean bit for bit and every
+    accounting field alike."""
+    import torch
+    acct = lambda r: (r.puts, r.gets, r.wall_clock_s, r.phases_s,
+                      sum(x.billed_gb_s for x in r.records),
+                      tuple(int(i) for i in r.arrivals), r.retries,
+                      r.hedges, r.hedge_wins, r.stale_folded)
+    if acct(a) != acct(b):
+        fail(f"{label}: accounting differs between engines: {acct(a)} vs "
+             f"{acct(b)}")
+    avg = a.avg_flat
+    if avg.device.type != "cuda" or not bool(torch.isfinite(avg).all()):
+        fail(f"{label}: avg_flat is not a finite CUDA tensor")
+    if check_bits and not bits_equal(avg, b.avg_flat):
+        fail(f"{label}: batched != streaming on the card")
+
+
+def phase_faults(fs, smoke, grads, FederatedSession, UploadModel):
+    """(a) GradsSharding at VGG-16 width under the fault rows, stale
+    re-entry and hedging: batched (the kernel) against streaming (plain
+    torch ops) on the card, bit for bit."""
+    import torch
+    upload = UploadModel(**FULL_UPLOAD)
+    base = dict(topology="gradssharding", n_shards=N_SHARDS, upload=upload,
+                readahead_k=1, codec="identity", device="cuda")
+    out = {"rounds": {}, "walls_s": {}}
+    with _KernelWeights(fs) as kw:
+        for name, knobs in smoke.FAULT_CASES:
+            knobs = dict(knobs, upload=upload)
+            res, walls = {}, []
+            for engine in ("batched", "streaming"):
+                session = FederatedSession(**{**base, **knobs},
+                                           engine=engine)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[engine] = session.round(grads)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            _same_round(name, res["batched"], res["streaming"])
+            r = res["batched"]
+            out["rounds"][name] = {
+                "delivered_fraction": r.delivered_fraction,
+                "arrivals": len(r.arrivals), "retries": r.retries,
+                "wall_s": r.wall_clock_s}
+            out["walls_s"][name] = walls
+            print(f"[8] {name}: delivered {r.delivered_fraction:.3f} "
+                  f"({len(r.arrivals)} arrivals), {r.retries} retries, "
+                  f"modeled wall {r.wall_clock_s:.3f} s; batched == "
+                  f"streaming; host walls {walls[0]:.3f} / {walls[1]:.3f} s")
+            del res, r, session
+
+        stale = {}
+        for engine in ("batched", "streaming"):
+            session = FederatedSession(
+                **base, engine=engine, schedule="pipelined",
+                faults=smoke.STALE_FAULTS, deadline_s=smoke.STALE_DEADLINE_S,
+                staleness_policy=smoke.STALE_POLICY)
+            stale[engine] = list(session.run(lambda rnd: grads,
+                                             rounds=STALE_ROUNDS))
+            totals = session.fault_totals
+            del session
+        for i, (a, b) in enumerate(zip(stale["batched"],
+                                       stale["streaming"])):
+            _same_round(f"stale round {i}", a, b)
+        folded = kw.non_unit
+        if totals["stale_folded"] == 0 or folded == 0:
+            fail(f"stale re-entry folded {totals['stale_folded']} entries, "
+                 f"{folded} kernel weights != 1.0")
+        out["stale"] = {"fault_totals": totals,
+                        "kernel_weights_not_one": folded,
+                        "weights": sorted({w for ws in kw.weights
+                                           for w in ws if w != 1.0})}
+        print(f"    stale re-entry, {STALE_ROUNDS} rounds: {totals}; "
+              f"{folded} stale weights != 1.0 folded by the kernel "
+              f"{out['stale']['weights']}; batched == streaming each round")
+        del stale
+
+    chains = {}
+    for hedge in (None,) + HEDGE_FACTORS:
+        for engine in ("batched", "streaming"):
+            session = FederatedSession(**base, engine=engine,
+                                       schedule="pipelined",
+                                       faults=smoke.HEDGE_FAULTS,
+                                       hedge_factor=hedge)
+            chains[hedge, engine] = list(session.run(
+                lambda rnd: grads, rounds=smoke.ROBUST_ROUNDS))
+            if engine == "batched":
+                out[f"hedge_{hedge}"] = session.fault_totals
+            del session
+        for i, (a, b) in enumerate(zip(chains[hedge, "batched"],
+                                       chains[hedge, "streaming"])):
+            _same_round(f"hedge {hedge} round {i}", a, b)
+    for hedge in HEDGE_FACTORS:
+        for i, (a, b) in enumerate(zip(chains[hedge, "batched"],
+                                       chains[None, "batched"])):
+            if not bits_equal(a.avg_flat, b.avg_flat):
+                fail(f"hedge {hedge} round {i}: mean != its unhedged twin")
+        print(f"    hedging at {hedge}, {smoke.ROBUST_ROUNDS} rounds: "
+              f"{out[f'hedge_{hedge}']}; hedged mean == unhedged twin, "
+              f"batched == streaming each round")
+    if out[f"hedge_{HEDGE_FACTORS[-1]}"]["hedges"] == 0:
+        fail(f"no hedge fired at hedge_factor {HEDGE_FACTORS[-1]}")
+    return out
+
+
+def phase_plugins(fs, grads, FederatedSession, UploadModel):
+    """(b) sharded_tree and geo_tiered at VGG-16 width, barrier and
+    pipelined: batched against streaming bit for bit, and sharded_tree's
+    mean against lambda_fl's."""
+    import torch
+    upload = UploadModel(**FULL_UPLOAD)
+    base = dict(upload=upload, readahead_k=1, codec="identity",
+                device="cuda")
+    lam = FederatedSession(topology="lambda_fl", engine="batched",
+                           **base).round(grads).avg_flat
+    walls = {}
+    for topology in ("sharded_tree", "geo_tiered"):
+        for schedule in ("barrier", "pipelined"):
+            res, w = {}, []
+            for engine in ("batched", "streaming"):
+                session = FederatedSession(topology=topology,
+                                           n_shards=N_SHARDS, engine=engine,
+                                           schedule=schedule, **base)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[engine] = session.round(grads)
+                torch.cuda.synchronize()
+                w.append(time.perf_counter() - t0)
+                del session
+            _same_round(f"{topology}/{schedule}", res["batched"],
+                        res["streaming"])
+            if topology == "sharded_tree" and \
+                    not bits_equal(res["batched"].avg_flat, lam):
+                fail(f"sharded_tree/{schedule}: mean != lambda_fl's")
+            walls[f"{topology}/{schedule}"] = w
+            print(f"[9] {topology}/{schedule}: {len(res['batched'].records)} "
+                  f"invocations, modeled wall "
+                  f"{res['batched'].wall_clock_s:.3f} s; batched == "
+                  f"streaming{'; == lambda_fl' if topology == 'sharded_tree' else ''}"
+                  f"; host walls {w[0]:.3f} / {w[1]:.3f} s")
+            del res
+    return walls
+
+
+class _RssPeak:
+    """The process's resident set, sampled every 5 ms in a thread while a
+    round runs: the host peak of that round, not of the whole script."""
+
+    def __init__(self):
+        import threading
+        self.peak = self.start = self._rss()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * 4096
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _plain_fold_nodes(fs):
+    """``fold_nodes`` with the kernel swapped for its plain version on the
+    card (the population's reference fold)."""
+    def fold(nodes, acc="f64", *, carry=None, finalize=True, divisors=None):
+        nodes = list(nodes)
+        carry = [None] * len(nodes) if carry is None else list(carry)
+        return [fs.fedavg_stream_plain(
+            x, w, acc, carry=c, finalize=finalize,
+            divisor=None if divisors is None else divisors[j])
+            for j, ((x, w), c) in enumerate(zip(nodes, carry))]
+    return fold
+
+
+def _pop_round(make_session):
+    """One population round: the result, host wall, the round's host RSS
+    peak above its start and the device peak above the live tensors."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        r = make_session().round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return r, {"host_wall_s": wall, "host_rss_peak_mb": rss.peak / 2**20,
+               "host_rss_rise_mb": (rss.peak - rss.start) / 2**20,
+               "device_peak_mb":
+                   (torch.cuda.max_memory_allocated() - base) / 2**20}
+
+
+def phase_population(fs, FederatedSession, ClientPopulation, UploadModel,
+                     FaultModel, LambdaLimits):
+    """(c) the population engine at the cohort sizes its users run: the CI
+    scale job's geo_tiered round (N = 10^5, K = 4,096) and GradsSharding
+    rounds at N = 10^5 and 10^6, each mean bit for bit against the plain
+    chunked fold of the same rows on the card, the device peak O(one
+    chunk), independent of N."""
+    import torch
+    from repro_torch.serverless import population as popmod
+    chunk_mb = popmod.CHUNK_ROWS * POP_GRAD_ELEMS * 4 / 2**20
+    bound_mb = 4 * chunk_mb          # two live chunks, accumulators, table
+    out, launches = {}, {}
+    ci = dict(topology="geo_tiered", schedule="pipelined",
+              participation_k=POP_CI["participation_k"],
+              faults=FaultModel(**POP_CI["faults"]),
+              upload=UploadModel(**POP_CI["upload"]), log_ops=False,
+              track_codec_error=False, device="cuda")
+    make = lambda: FederatedSession(
+        population=ClientPopulation(POP_CI["n"], seed=POP_CI["seed"]), **ci)
+    fs.LAUNCHES = 0                  # the population path starts here
+    r, stats = _pop_round(make)
+    launches["geo_ci"] = fs.LAUNCHES
+    real = fs.fold_nodes
+    fs.fold_nodes = _plain_fold_nodes(fs)
+    try:
+        want = make().round().avg_flat
+    finally:
+        fs.fold_nodes = real
+    if launches["geo_ci"] == 0 or not bits_equal(r.avg_flat, want):
+        fail(f"population geo_tiered N={POP_CI['n']}: {launches['geo_ci']} "
+             f"launches; mean == plain chunked fold: "
+             f"{bits_equal(r.avg_flat, want)}")
+    stats.update(arrivals=len(r.arrivals), aggregators=len(r.records),
+                 modeled_wall_s=r.wall_clock_s, launches=launches["geo_ci"])
+    out[f"geo_tiered_{POP_CI['n']}"] = stats
+    print(f"[10] population geo_tiered N={POP_CI['n']} K="
+          f"{POP_CI['participation_k']} (CI scale round): {len(r.arrivals)} "
+          f"arrivals, {len(r.records)} aggregators, {stats['launches']} "
+          f"kernel launches; mean == plain chunked fold; host wall "
+          f"{stats['host_wall_s']:.2f} s, host RSS peak "
+          f"{stats['host_rss_peak_mb']:.0f} MB (+{stats['host_rss_rise_mb']:.0f}"
+          f"), device peak {stats['device_peak_mb']:.2f} MB")
+    del r, want
+
+    limits = LambdaLimits(max_timeout_s=POP_TIMEOUT_S)
+    for n in POP_NS:
+        pop = ClientPopulation(n, grad_elems=POP_GRAD_ELEMS, seed=1)
+        make = lambda: FederatedSession(
+            topology="gradssharding", population=pop,
+            upload=UploadModel(**POP_UPLOAD), limits=limits, log_ops=False,
+            keep_records=False, track_codec_error=False, device="cuda")
+        before = fs.LAUNCHES
+        r, stats = _pop_round(make)
+        stats["launches"] = launches[f"gradssharding_{n}"] = \
+            fs.LAUNCHES - before
+        # the plain chunked fold of the same rows, in the same order
+        acc, t0 = None, time.perf_counter()
+        members = r.arrivals
+        chunks = list(range(0, len(members), popmod.CHUNK_ROWS))
+        for i, s in enumerate(chunks):
+            rows = pop.grads(0, members[s:s + popmod.CHUNK_ROWS], "cuda")
+            last = i == len(chunks) - 1
+            acc = fs.fedavg_stream_plain(
+                rows, carry=acc, finalize=last,
+                divisor=float(len(members)) if last else None)
+        torch.cuda.synchronize()
+        stats["plain_check_s"] = time.perf_counter() - t0
+        expect = math.ceil(len(members) / popmod.CHUNK_ROWS)
+        if stats["launches"] != expect or not bits_equal(r.avg_flat, acc):
+            fail(f"population gradssharding N={n}: {stats['launches']} "
+                 f"launches (expected {expect}); mean == plain chunked "
+                 f"fold: {bits_equal(r.avg_flat, acc)}")
+        if stats["device_peak_mb"] > bound_mb:
+            fail(f"population gradssharding N={n}: device peak "
+                 f"{stats['device_peak_mb']:.2f} MB above the O(chunk) "
+                 f"bound {bound_mb:.0f} MB")
+        stats.update(arrivals=len(members), modeled_wall_s=r.wall_clock_s)
+        out[f"gradssharding_{n}"] = stats
+        print(f"     population gradssharding N={n}: {stats['launches']} "
+              f"carry launches; mean == plain chunked fold "
+              f"({stats['plain_check_s']:.1f} s); host wall "
+              f"{stats['host_wall_s']:.2f} s, host RSS peak "
+              f"{stats['host_rss_peak_mb']:.0f} MB (+"
+              f"{stats['host_rss_rise_mb']:.0f}), device peak "
+              f"{stats['device_peak_mb']:.2f} MB")
+        del r, acc, pop
+    small, large = (out[f"gradssharding_{n}"]["device_peak_mb"]
+                    for n in POP_NS)
+    if large > small + 1.0:
+        fail(f"the device peak grew with N: {small:.2f} MB at N={POP_NS[0]}, "
+             f"{large:.2f} MB at N={POP_NS[1]}")
+    out["device_peak_bound_mb"] = bound_mb
+    return out, launches
+
+
+def phase_population_codec(fs, q, FederatedSession, ClientPopulation):
+    """(d) one small population round under qsgd8 per population topology
+    that decodes whole rows or shards: the codec kernels run through the
+    population's decode, and the round equals the eager round over the
+    materialized cohort on the card."""
+    import torch
+    pop = ClientPopulation(CODEC_POP_N, grad_elems=POP_GRAD_ELEMS, seed=3)
+    rows = {}
+    for topology in ("gradssharding", "geo_tiered"):
+        kw = dict(topology=topology, schedule="pipelined", codec="qsgd8",
+                  readahead_k=2, device="cuda")
+        q.QUANTIZE_LAUNCHES = q.DEQUANTIZE_LAUNCHES = 0
+        folds = fs.LAUNCHES
+        lazy = FederatedSession(population=pop, **kw).round()
+        launched = (q.QUANTIZE_LAUNCHES, q.DEQUANTIZE_LAUNCHES,
+                    fs.LAUNCHES - folds)
+        eager = FederatedSession(**kw).round(pop.materialize(0, "cuda"))
+        if min(launched) == 0:
+            fail(f"qsgd8 population {topology}: launches (quantize, "
+                 f"dequantize, fold) {launched}")
+        _same_round(f"qsgd8 population {topology}", lazy, eager,
+                    check_bits=False)
+        if not bits_equal(lazy.avg_flat, eager.avg_flat) \
+                or lazy.codec_error != eager.codec_error:
+            fail(f"qsgd8 population {topology}: != the eager round")
+        rows[topology] = {"launches": launched,
+                          "codec_error": lazy.codec_error}
+        print(f"[11] qsgd8 population {topology} N={CODEC_POP_N}: launches "
+              f"(quantize, dequantize, fold) {launched}; == eager round over "
+              f"the materialized cohort, codec_error {lazy.codec_error!r}")
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_carry_timing(fs, peak):
+    """The carry form at the population's shapes: one 512-row chunk of
+    4,096-element rows into an f32 accumulator (GradsSharding) and into
+    an f64 one (the weighted plans), beside the bound, the plain version
+    and ``torch.sum`` over the chunk (the same sum without the carry)."""
+    import torch
+    from repro_torch.serverless import population as popmod
+    bw, f32, f64 = peak
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    n, L = popmod.CHUNK_ROWS, POP_GRAD_ELEMS
+    rows = torch.randn(n, L, generator=gen, device="cuda")
+    out = {}
+    for name, weighted in (("carry_f32", False), ("carry_f64", True)):
+        w = [1.0] * n if weighted else None
+        acc = fs.fold_nodes([(rows, w)], finalize=False)[0]
+        kernel = lambda: fs.fold_nodes([(rows, w)], carry=[acc],
+                                       finalize=False)
+        plain = lambda: fs.fedavg_stream_plain(rows, w, carry=acc,
+                                               finalize=False)
+        nbytes = n * L * 4 + 2 * L * acc.element_size()
+        ops = n * L
+        t_bytes, t_ops = nbytes / bw, ops / (f64 if weighted else f32)
+        got = device_ms(kernel, "fedavg_fold_kernel")
+        row = {"rows": n, "elements": L, "bytes": nbytes, "ops": ops,
+               "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+               "library_ms": time_ms(lambda: torch.sum(rows, dim=0)),
+               "device_ms": got[0] if got else None,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out[name] = row
+        dev = "not measured" if got is None else \
+            f"{row['device_ms']:.4f} ms ({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound)"
+        print(f"     {name}: one {n} x {L} chunk: {row['ms']:.4f} ms kernel "
+              f"(events), device {dev}, plain {row['plain_ms']:.3f} ms, "
+              f"torch.sum {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -1169,6 +1639,10 @@ def main() -> None:
     from repro_torch.models import layers
     from repro_torch.models import registry as models
     from repro_torch import smoke
+    from repro_torch.config import LambdaLimits
+    from repro_torch.core.cost_model import UploadModel
+    from repro_torch.serverless.faults import FaultModel
+    from repro_torch.serverless.population import ClientPopulation
 
     phase_build(build)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1202,6 +1676,26 @@ def main() -> None:
                                peaks(name))
     del lm_grads
     lm_profile = phase_lm_profile(models, lm_data, lm_cfg, trained)
+    del trained
+    torch.cuda.empty_cache()
+
+    # phases 8-9: the same VGG-16 gradients, drawn again from the seed
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = [torch.randn(VGG16.params, generator=gen, device="cuda")
+             for _ in range(N_CLIENTS)]
+    fs.LAUNCHES = 0                      # the fault and plugin paths
+    faults_out = phase_faults(fs, smoke, grads, FederatedSession,
+                              UploadModel)
+    plugin_walls = phase_plugins(fs, grads, FederatedSession, UploadModel)
+    fault_launches = fs.LAUNCHES
+    del grads
+    torch.cuda.empty_cache()
+    pop_out, pop_launches = phase_population(
+        fs, FederatedSession, ClientPopulation, UploadModel, FaultModel,
+        LambdaLimits)
+    pop_codec = phase_population_codec(fs, q, FederatedSession,
+                                       ClientPopulation)
+    carry_rows = phase_carry_timing(fs, peaks(name))
 
     head = rows[0]                       # the GradsSharding wave
     print(json.dumps({"waves": rows, "round_walls_s": walls,
@@ -1212,15 +1706,24 @@ def main() -> None:
                       "lm_kernels": lm_rows, "lm_launches": lm_launches,
                       "lm_mean_losses": lm_means, "lm_walls_s": lm_walls,
                       "lm_peak_memory_gb": lm_peak,
-                      "lm_step_profile": lm_profile, "card": card}))
+                      "lm_step_profile": lm_profile,
+                      "faults": faults_out, "plugin_round_walls_s":
+                          plugin_walls, "population": pop_out,
+                      "population_codec": pop_codec,
+                      "fold_launches": {"main_path": launches,
+                                        "faults_and_plugins": fault_launches,
+                                        "population": pop_launches},
+                      "carry": carry_rows, "card": card}))
     kernels = [{
         "name": "fedavg_stream", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_stream.cu",
         "replaces": "src/repro/kernels/fedavg_stream.py:47",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + fault_launches + sum(pop_launches.values()),
+        "max_abs_err": max_err,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "equal_plain": True}]
+        "library_ms": head["library_ms"], "equal_plain": True,
+        "carry": carry_rows}]
     for name, source, replaces in (
             ("quantize", "quantize.cu", "src/repro/kernels/quantize.py:33"),
             ("dequantize", "quantize.cu", "src/repro/kernels/quantize.py:55"),

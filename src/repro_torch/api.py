@@ -24,7 +24,8 @@ as contiguous f32 tensors; on a CUDA device the batched engine folds them
 in the hand-written kernel.
 
 Topologies dispatch through the :mod:`repro_torch.core.topology` registry,
-so a ``@register_topology`` plugin is immediately usable by name. Long sessions can set ``keep_records=False`` to compact
+so a ``@register_topology`` plugin (e.g. ``sharded_tree``) is immediately
+usable by name. Long sessions can set ``keep_records=False`` to compact
 per-round runtime records, availability-map entries, store objects and op
 logs after each round — aggregate billing/op counters survive, so
 1k-round sweeps run in bounded memory.
@@ -34,34 +35,21 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Iterator, Mapping, Sequence
 
-import torch
-
 from repro_torch import knobs
 from repro_torch.config import LambdaLimits
 from repro_torch.core.agg_engine import ENGINES
 from repro_torch.core.cost_model import UploadModel
 from repro_torch.core.fold_pool import get_workers
-from repro_torch.core.sharding import as_grad_tensor
+from repro_torch.core.sharding import as_grad_tensor, resolve_device
 from repro_torch.core.topology import (AggregationResult, available_topologies,
                                  get_codec, get_readahead, get_schedule,
                                  get_topology, round_prefix, run_round,
                                  validate_fault_knobs)
 from repro_torch.serverless.faults import FaultModel, StaleBuffer, StalenessPolicy
+from repro_torch.serverless.population import (ClientPopulation,
+                                               run_population_round)
 from repro_torch.serverless.runtime import FaultPlan, LambdaRuntime
 from repro_torch.store import ObjectStore
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """The session's device; a CUDA device must exist — a session never
-    quietly runs on the CPU instead."""
-    dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} but no CUDA device is available; pass "
-            f"device='cpu' to run the plain folds on the host")
-    return dev
 
 
 @dataclass(frozen=True)
@@ -69,7 +57,9 @@ class SessionConfig:
     """Everything a federated aggregation session needs, in one place.
 
     ``topology`` names a registered :class:`~repro_torch.core.topology
-    .Topology` (builtins: ``gradssharding``, ``lambda_fl``, ``lifl``). ``engine``/``schedule`` accept the usual
+    .Topology` (builtins: ``gradssharding``, ``lambda_fl``, ``lifl``, plus
+    the ``sharded_tree`` and ``geo_tiered`` plugins).
+    ``engine``/``schedule`` accept the usual
     knob values or ``None`` (env ``REPRO_AGG_ENGINE`` /
     ``REPRO_AGG_SCHEDULE``). ``upload`` models client networks *and*
     per-client local-compute time (``UploadModel.compute_s`` /
@@ -143,9 +133,15 @@ class SessionConfig:
     # the per-op put_log/get_log appends — required at million-client
     # scale, where the op log itself would be the O(N·M) residency
     log_ops: bool = True
-    # lazy synthetic cohort of the reference package: not ported yet
-    # (ROADMAP queue 1, item 9); anything but None raises
-    population: Any = None
+    # lazy synthetic cohort: rounds run through the O(active)
+    # population engine (repro_torch.serverless.population) instead of
+    # eager per-client gradients — call ``session.round()`` with no
+    # ``client_grads``. Bit-identical to the eager driver over
+    # ``population.materialize(rnd)``; on a CUDA device its chunked folds
+    # run in the fold kernel with a carried accumulator. Pair with
+    # ``log_ops=False`` (and ``keep_records=False`` for multi-round) at
+    # million-client scale
+    population: ClientPopulation | None = None
     # host fold-pool width behind the batched engine's CPU evaluation:
     # int >= 1, "auto"/None (env REPRO_AGG_WORKERS, else every host
     # core). Work is split along the element axis only, so avg_flat is
@@ -240,10 +236,6 @@ class FederatedSession:
             config = replace(config, faults=faults)
             faults = None
         self.config = config
-        if config.population is not None:
-            raise NotImplementedError(
-                "population-backed sessions are not ported yet (ROADMAP "
-                "queue 1, item 9: lazy population)")
         if config.host_mesh is not None:
             raise NotImplementedError(
                 "the host_mesh engine is not ported yet (ROADMAP queue 1, "
@@ -303,14 +295,26 @@ class FederatedSession:
                               "hedge_wins": 0}
 
     # ------------------------------------------------------------------
-    def round(self, client_grads: Sequence, *,
+    def round(self, client_grads: Sequence | None = None, *,
               rnd: int | None = None) -> AggregationResult:
         """Run one aggregation round; rounds auto-number from 0.
 
         ``client_grads`` are flat f32 gradients, numpy arrays or tensors;
-        they move to the session's device as contiguous f32 tensors."""
+        they move to the session's device as contiguous f32 tensors.
+        Population-backed sessions (``SessionConfig.population``) take no
+        ``client_grads`` — the lazy cohort generates its own."""
         cfg = self.config
         rnd = self.rounds_run if rnd is None else rnd
+        if cfg.population is not None:
+            if client_grads is not None:
+                raise ValueError(
+                    "a population-backed session generates its own client "
+                    "gradients; call round() without client_grads")
+            return self._population_round(rnd)
+        if client_grads is None:
+            raise ValueError(
+                "client_grads is required unless SessionConfig.population "
+                "is set")
         client_grads = [as_grad_tensor(g, self.device) for g in client_grads]
         if self._client_ready is not None \
                 and len(self._client_ready) != len(client_grads):
@@ -332,8 +336,33 @@ class FederatedSession:
             stale_buffer=self.stale_buffer,
             hedge_factor=cfg.hedge_factor, workers=cfg.workers,
             **cfg.round_options())
+        return self._finish_round(result, rnd)
+
+    def _population_round(self, rnd: int) -> AggregationResult:
+        """One round through the O(active) population engine on the
+        session's device — same knob threading and session bookkeeping as
+        the eager path."""
+        cfg = self.config
+        result = run_population_round(
+            self.topology, cfg.population, rnd=rnd, store=self.store,
+            runtime=self.runtime, engine=cfg.engine, schedule=cfg.schedule,
+            upload=cfg.resolved_upload(),
+            client_ready_s=self._client_ready,
+            straggler_threshold_s=cfg.straggler_threshold_s,
+            readahead_k=cfg.readahead_k, codec=cfg.codec,
+            track_codec_error=cfg.track_codec_error,
+            faults=cfg.faults, participation_k=cfg.participation_k,
+            deadline_s=cfg.deadline_s, quorum=cfg.quorum,
+            staleness_policy=cfg.staleness_policy,
+            stale_buffer=self.stale_buffer,
+            hedge_factor=cfg.hedge_factor, workers=cfg.workers,
+            device=self.device, **cfg.round_options())
+        return self._finish_round(result, rnd)
+
+    def _finish_round(self, result: AggregationResult,
+                      rnd: int) -> AggregationResult:
         self._observe(result)
-        if not cfg.keep_records:
+        if not self.config.keep_records:
             self._compact(rnd)
             # the per-client read-back array is threaded into the next
             # round via _client_ready; retaining a copy on every yielded
@@ -342,16 +371,18 @@ class FederatedSession:
         self.rounds_run = max(self.rounds_run, rnd + 1)
         return result
 
-    def run(self, client_grad_fn: Callable[[int], Sequence],
+    def run(self, client_grad_fn: Callable[[int], Sequence] | None = None,
             rounds: int = 1) -> Iterator[AggregationResult]:
         """Iterate ``rounds`` aggregation rounds; ``client_grad_fn(rnd)``
         supplies each round's client gradients (flat f32 vectors —
-        typically local-SGD deltas). Lazily yields each
-        :class:`AggregationResult` so 1k-round sweeps need not hold every
-        result (pair with ``keep_records=False`` for bounded memory)."""
+        typically local-SGD deltas; population-backed sessions pass
+        ``None``). Lazily yields each :class:`AggregationResult` so
+        1k-round sweeps need not hold every result (pair with
+        ``keep_records=False`` for bounded memory)."""
         for _ in range(rounds):
             rnd = self.rounds_run
-            yield self.round(client_grad_fn(rnd), rnd=rnd)
+            grads = None if client_grad_fn is None else client_grad_fn(rnd)
+            yield self.round(grads, rnd=rnd)
 
     # ------------------------------------------------------------------
     def _observe(self, result: AggregationResult) -> None:

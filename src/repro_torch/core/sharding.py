@@ -192,6 +192,18 @@ def as_grad_tensor(grad, device: str | torch.device | None = None
     return grad.to(device=device, dtype=torch.float32).contiguous()
 
 
+def resolve_device(device: str | torch.device) -> torch.device:
+    """A value plane's device; a CUDA device must exist — a session or a
+    population round never quietly runs on the CPU instead."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but no CUDA device is available; pass "
+            f"device='cpu' to run the plain folds on the host")
+    return dev
+
 
 class ShardView:
     """Zero-copy view of one shard: the plan's segments over a flat tensor,

@@ -35,7 +35,11 @@ edits. The analytical cost model (:mod:`repro_torch.core.cost_model`)
 consults the same registry for unknown topology names, so a plugin
 topology also gets Table-II op counts, memory/feasibility and round-cost
 entries by implementing the ``cost_*`` hooks. This package registers the
-paper's three builtins: ``gradssharding``, ``lambda_fl`` and ``lifl``.
+paper's three builtins, ``gradssharding``, ``lambda_fl`` and ``lifl``,
+and two plugins through the public API alone:
+:mod:`repro_torch.core.sharded_tree` (shard the gradient into M pieces,
+aggregate each shard through a ⌈√N⌉ two-level tree) and
+:mod:`repro_torch.core.geo_tiered` (edge → region → global).
 
 Client gradients, stored shards and the round's mean are torch tensors on
 the gradient's device; upload schedules, read-back timelines and every
@@ -1438,3 +1442,9 @@ class LIFLTopology(Topology):
         # compressed-wire memory bound must budget the f64 accumulator
         return True
 
+
+# The plugin topologies register themselves through the public API above;
+# importing them here makes them available wherever the registry is (the
+# imports must follow the registry definitions).
+import repro_torch.core.sharded_tree  # noqa: E402,F401  (registration side effect)
+import repro_torch.core.geo_tiered  # noqa: E402,F401  (registration side effect)

@@ -15,15 +15,25 @@
 // Bits (the reference engine's exact IEEE op sequence per element):
 //   mode 0, unweighted f32:  acc = x_0; acc = acc + x_i ...; out = acc / N
 //   mode 1, weighted f64:    acc = (f64)x_0*w_0; acc = acc + (f64)x_i*w_i ...;
-//                            out = (f32)(acc / total)
+//                            out = (f32)(acc / total); a weight of exactly
+//                            1.0 adds (f64)x_i unmultiplied, as the engines do
 //   mode 2, weighted f32:    acc = x_0*w_0; acc = acc + x_i*w_i ...;
 //                            out = acc / total   (all in f32)
 // Every operation is a round-to-nearest intrinsic, so no multiply-add is
 // contracted; there is no split over clients and no atomics. Loads are
 // scalar and coalesced, so inputs need no alignment beyond their type.
 //
+// Carry: a node may start from a carried accumulator (f32 in modes 0 and 2,
+// f64 in mode 1) instead of its first input, so acc = carry; acc = acc + x_0
+// ...; and a node may skip the divide and store the raw accumulator in the
+// carry's type. A long fold then runs as one launch per chunk of clients,
+// each chunk carrying the previous one's sum and the last dividing: per
+// element the same left fold as one launch over every client, and the same
+// as numpy's add.accumulate down the client axis.
+//
 // The node table, one int64 array in device memory (f64 values bit-cast):
-//   meta[n_nodes][5] = {length, out pointer, first client slot, n clients, mode}
+//   meta[n_nodes][7] = {length, out pointer, first client slot, n clients, mode,
+//                       carry pointer (0: none), finalize (0: store the sum)}
 //   div[n_nodes]     = divisor (N, or the host's sum of the weights)
 //   ptr[n_slots]     = input base pointer of each (node, client) slot
 //   w[n_slots]       = weight of each slot (1.0 when unweighted)
@@ -36,7 +46,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kEpt = 4;  // elements per thread, strided by kThreads
-constexpr int kMetaCols = 5;
+constexpr int kMetaCols = 7;
 
 __device__ __forceinline__ float load_f32(const float* p, int64_t i) {
   return p[i];
@@ -44,6 +54,11 @@ __device__ __forceinline__ float load_f32(const float* p, int64_t i) {
 
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t i) {
   return __bfloat162float(p[i]);
+}
+
+// One input's term: (f64)x * w, or (f64)x itself when w is exactly 1.0.
+__device__ __forceinline__ double term_f64(float x, double w) {
+  return w == 1.0 ? (double)x : __dmul_rn((double)x, w);
 }
 
 template <typename T>
@@ -55,13 +70,17 @@ fedavg_fold_kernel(const int64_t* __restrict__ table, int n_nodes,
   const int64_t len = meta[0];
   const int64_t base = (int64_t)blockIdx.x * (kThreads * kEpt);
   if (base >= len) return;
-  float* out = reinterpret_cast<float*>(meta[1]);
+  void* out = reinterpret_cast<void*>(meta[1]);
   const int64_t slot0 = meta[2];
   const int nc = (int)meta[3];
   const int mode = (int)meta[4];
+  const void* carry = reinterpret_cast<const void*>(meta[5]);
+  const bool fin = meta[6] != 0;
   const double div = __longlong_as_double(table[(int64_t)n_nodes * kMetaCols + node]);
   const int64_t* ptrs = table + (int64_t)n_nodes * (kMetaCols + 1) + slot0;
   const int64_t* wbits = table + (int64_t)n_nodes * (kMetaCols + 1) + n_slots + slot0;
+  // with a carry every input is added to it; without, input 0 starts the sum
+  const int first = carry ? 0 : 1;
 
   int64_t idx[kEpt];
   bool ok[kEpt];
@@ -71,61 +90,80 @@ fedavg_fold_kernel(const int64_t* __restrict__ table, int n_nodes,
     ok[k] = idx[k] < len;
   }
 
-  if (mode == 0) {
-    float acc[kEpt];
-    const T* x0 = reinterpret_cast<const T*>(ptrs[0]);
+  if (mode == 1) {
+    double acc[kEpt];
+    if (carry) {
+      const double* c = reinterpret_cast<const double*>(carry);
 #pragma unroll
-    for (int k = 0; k < kEpt; ++k) acc[k] = ok[k] ? load_f32(x0, idx[k]) : 0.0f;
-#pragma unroll 4
-    for (int i = 1; i < nc; ++i) {
-      const T* xi = reinterpret_cast<const T*>(ptrs[i]);
+      for (int k = 0; k < kEpt; ++k) acc[k] = ok[k] ? c[idx[k]] : 0.0;
+    } else {
+      const T* x0 = reinterpret_cast<const T*>(ptrs[0]);
+      const double w0 = __longlong_as_double(wbits[0]);
 #pragma unroll
       for (int k = 0; k < kEpt; ++k)
-        if (ok[k]) acc[k] = __fadd_rn(acc[k], load_f32(xi, idx[k]));
+        acc[k] = ok[k] ? term_f64(load_f32(x0, idx[k]), w0) : 0.0;
     }
-    const float d = (float)div;
-#pragma unroll
-    for (int k = 0; k < kEpt; ++k)
-      if (ok[k]) out[idx[k]] = __fdiv_rn(acc[k], d);
-  } else if (mode == 1) {
-    double acc[kEpt];
-    const T* x0 = reinterpret_cast<const T*>(ptrs[0]);
-    const double w0 = __longlong_as_double(wbits[0]);
-#pragma unroll
-    for (int k = 0; k < kEpt; ++k)
-      acc[k] = ok[k] ? __dmul_rn((double)load_f32(x0, idx[k]), w0) : 0.0;
 #pragma unroll 4
-    for (int i = 1; i < nc; ++i) {
+    for (int i = first; i < nc; ++i) {
       const T* xi = reinterpret_cast<const T*>(ptrs[i]);
       const double wi = __longlong_as_double(wbits[i]);
 #pragma unroll
       for (int k = 0; k < kEpt; ++k)
-        if (ok[k])
-          acc[k] = __dadd_rn(acc[k], __dmul_rn((double)load_f32(xi, idx[k]), wi));
+        if (ok[k]) acc[k] = __dadd_rn(acc[k], term_f64(load_f32(xi, idx[k]), wi));
     }
+    if (fin) {
+      float* o = reinterpret_cast<float*>(out);
 #pragma unroll
-    for (int k = 0; k < kEpt; ++k)
-      if (ok[k]) out[idx[k]] = __double2float_rn(__ddiv_rn(acc[k], div));
+      for (int k = 0; k < kEpt; ++k)
+        if (ok[k]) o[idx[k]] = __double2float_rn(__ddiv_rn(acc[k], div));
+    } else {
+      double* o = reinterpret_cast<double*>(out);
+#pragma unroll
+      for (int k = 0; k < kEpt; ++k)
+        if (ok[k]) o[idx[k]] = acc[k];
+    }
+    return;
+  }
+
+  // modes 0 and 2 accumulate in f32
+  const bool weighted = mode == 2;
+  float acc[kEpt];
+  if (carry) {
+    const float* c = reinterpret_cast<const float*>(carry);
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) acc[k] = ok[k] ? c[idx[k]] : 0.0f;
   } else {
-    float acc[kEpt];
     const T* x0 = reinterpret_cast<const T*>(ptrs[0]);
     const float w0 = (float)__longlong_as_double(wbits[0]);
 #pragma unroll
-    for (int k = 0; k < kEpt; ++k)
-      acc[k] = ok[k] ? __fmul_rn(load_f32(x0, idx[k]), w0) : 0.0f;
+    for (int k = 0; k < kEpt; ++k) {
+      const float x = ok[k] ? load_f32(x0, idx[k]) : 0.0f;
+      acc[k] = weighted ? __fmul_rn(x, w0) : x;
+    }
+  }
+  if (weighted) {
 #pragma unroll 4
-    for (int i = 1; i < nc; ++i) {
+    for (int i = first; i < nc; ++i) {
       const T* xi = reinterpret_cast<const T*>(ptrs[i]);
       const float wi = (float)__longlong_as_double(wbits[i]);
 #pragma unroll
       for (int k = 0; k < kEpt; ++k)
         if (ok[k]) acc[k] = __fadd_rn(acc[k], __fmul_rn(load_f32(xi, idx[k]), wi));
     }
-    const float d = (float)div;
+  } else {
+#pragma unroll 4
+    for (int i = first; i < nc; ++i) {
+      const T* xi = reinterpret_cast<const T*>(ptrs[i]);
 #pragma unroll
-    for (int k = 0; k < kEpt; ++k)
-      if (ok[k]) out[idx[k]] = __fdiv_rn(acc[k], d);
+      for (int k = 0; k < kEpt; ++k)
+        if (ok[k]) acc[k] = __fadd_rn(acc[k], load_f32(xi, idx[k]));
+    }
   }
+  float* o = reinterpret_cast<float*>(out);
+  const float d = (float)div;
+#pragma unroll
+  for (int k = 0; k < kEpt; ++k)
+    if (ok[k]) o[idx[k]] = fin ? __fdiv_rn(acc[k], d) : acc[k];
 }
 
 }  // namespace

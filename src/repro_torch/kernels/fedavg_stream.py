@@ -26,7 +26,16 @@ Arithmetic, per element, with the reference engine's exact bits:
 * weighted, ``acc="f32"`` (the TPU kernel's ``fedavg_shards`` form) — an
   f32 fold of ``x_i·w_i``, divided by the f32 sum of the weights.
 
-Inputs are f32, or bf16 widened exactly. :func:`fold_nodes` runs the
+A node may also start from a carried accumulator instead of its first
+input and skip the divide, returning the raw accumulator: a long fold then
+runs chunk by chunk, ``acc ← acc + x_0 + … + x_{n-1}`` per chunk and the
+divide after the last, with the bits of one fold over every input (and of
+numpy's ``add.accumulate`` down the client axis). The accumulator is f32
+for the unweighted and ``acc="f32"`` forms and f64 for ``acc="f64"``; the
+last chunk's divisor is passed in, since it counts every chunk's inputs.
+
+Inputs are f32, or bf16 widened exactly; a node's inputs are a sequence of
+1-D tensors or the rows of one 2-D tensor. :func:`fold_nodes` runs the
 kernel for CUDA tensors and :func:`fedavg_stream_plain` for CPU tensors;
 there is no other switch. ``LAUNCHES`` counts kernel launches.
 """
@@ -45,7 +54,7 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 
 _MODES = {None: 0, "f64": 1, "f32": 2}
-_META = 5                     # columns of the per-node table rows
+_META = 7                     # columns of the per-node table rows
 _MAX_NODES = 65535            # grid.y limit of one launch
 _INPUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -70,48 +79,93 @@ def _divisor(n: int, weights: Sequence[float] | None, acc: str) -> float:
     return float(sum(weights))
 
 
-def fedavg_stream_plain(inputs: Sequence[torch.Tensor],
-                        weights: Sequence[float] | None = None,
-                        acc: str = "f64") -> torch.Tensor:
+def acc_dtype(weighted: bool, acc: str = "f64") -> torch.dtype:
+    """The accumulator dtype of a node: f64 for a weighted ``acc="f64"``
+    fold, f32 otherwise (the dtype of a carry and of a raw accumulator)."""
+    return torch.float64 if weighted and acc == "f64" else torch.float32
+
+
+def fedavg_stream_plain(inputs, weights: Sequence[float] | None = None,
+                        acc: str = "f64", *,
+                        carry: torch.Tensor | None = None,
+                        finalize: bool = True,
+                        divisor: float | None = None) -> torch.Tensor:
     """The kernel's arithmetic as a torch loop: the same op sequence, one
     whole-tensor op per step. ``inputs`` is a sequence of equal-length 1-D
-    f32/bf16 tensors (or an (N, L) stack); returns the (L,) f32 mean."""
+    f32/bf16 tensors (or an (N, L) stack); returns the (L,) f32 mean, or
+    with ``finalize=False`` the raw accumulator (:func:`acc_dtype`).
+    ``carry`` starts the sum in place of the first input (it is not
+    modified); ``divisor`` replaces the count or weight sum of the
+    inputs."""
     xs = list(inputs)
     dev = xs[0].device
-    div = _divisor(len(xs), weights, acc)
+    if acc not in ("f64", "f32"):
+        raise ValueError(f"acc must be 'f64' or 'f32', got {acc!r}")
+    div = _divisor(len(xs), weights, acc) if divisor is None \
+        else float(divisor)
     if weights is None:
-        out = xs[0].to(torch.float32, copy=True)
-        for x in xs[1:]:
+        if carry is None:
+            out = xs[0].to(torch.float32, copy=True)
+            xs = xs[1:]
+        else:
+            out = carry.clone()
+        for x in xs:
             out.add_(x)
-        return out.div_(_scalar(div, torch.float32, dev))
+        return out.div_(_scalar(div, torch.float32, dev)) if finalize else out
     if acc == "f32":
         w = _f32_weights(weights)
-        out = xs[0].to(torch.float32) * _scalar(w[0], torch.float32, dev)
-        for x, wi in zip(xs[1:], w[1:]):
+        if carry is None:
+            out = xs[0].to(torch.float32) * _scalar(w[0], torch.float32, dev)
+            xs, w = xs[1:], w[1:]
+        else:
+            out = carry.clone()
+        for x, wi in zip(xs, w):
             out.add_(x.to(torch.float32) * _scalar(wi, torch.float32, dev))
-        return out.div_(_scalar(div, torch.float32, dev))
-    if acc != "f64":
-        raise ValueError(f"acc must be 'f64' or 'f32', got {acc!r}")
-    out = xs[0].to(torch.float64) * _scalar(weights[0], torch.float64, dev)
-    for x, wi in zip(xs[1:], weights[1:]):
-        out.add_(x.to(torch.float64) * _scalar(wi, torch.float64, dev))
+        return out.div_(_scalar(div, torch.float32, dev)) if finalize else out
+    # a weight of exactly 1.0 adds the widened input unmultiplied, as the
+    # engines do (the multiply would be exact)
+    w = [float(x) for x in weights]
+    if carry is None:
+        out = xs[0].to(torch.float64, copy=True)
+        if w[0] != 1.0:
+            out.mul_(_scalar(w[0], torch.float64, dev))
+        xs, w = xs[1:], w[1:]
+    else:
+        out = carry.clone()
+    for x, wi in zip(xs, w):
+        if wi == 1.0:
+            out.add_(x.to(torch.float64))
+        else:
+            out.add_(x.to(torch.float64) * _scalar(wi, torch.float64, dev))
+    if not finalize:
+        return out
     return out.div_(_scalar(div, torch.float64, dev)).to(torch.float32)
 
 
-def _check_inputs(nodes, device: torch.device) -> torch.dtype:
+def _rows(inputs) -> int:
+    return int(inputs.shape[0]) if isinstance(inputs, torch.Tensor) \
+        else len(inputs)
+
+
+def _check_inputs(nodes, carries, acc: str, device: torch.device
+                  ) -> torch.dtype:
     dtype = None
-    for inputs, weights in nodes:
-        if not len(inputs):
+    for (inputs, weights), carry in zip(nodes, carries):
+        if not _rows(inputs):
             raise ValueError("a fold node needs at least one input")
-        if weights is not None and len(weights) != len(inputs):
-            raise ValueError(f"{len(weights)} weights for {len(inputs)} "
+        if weights is not None and len(weights) != _rows(inputs):
+            raise ValueError(f"{len(weights)} weights for {_rows(inputs)} "
                              f"inputs")
-        length = int(inputs[0].shape[0])
-        for x in inputs:
+        stack = isinstance(inputs, torch.Tensor)
+        if stack and inputs.dim() != 2:
+            raise ValueError(f"a node's stacked inputs must be 2-D, got "
+                             f"{tuple(inputs.shape)}")
+        length = int(inputs.shape[1] if stack else inputs[0].shape[0])
+        for x in ([inputs] if stack else inputs):
             if x.device != device:
                 raise ValueError(f"fold inputs span devices: {x.device} "
                                  f"and {device}")
-            if x.dim() != 1 or int(x.shape[0]) != length:
+            if not stack and (x.dim() != 1 or int(x.shape[0]) != length):
                 raise ValueError(f"fold inputs must be 1-D of one length, "
                                  f"got {tuple(x.shape)} vs ({length},)")
             if x.dtype not in _INPUT_DTYPES:
@@ -119,10 +173,25 @@ def _check_inputs(nodes, device: torch.device) -> torch.dtype:
                                 f"{x.dtype}")
             if dtype is not None and x.dtype != dtype:
                 raise TypeError("one launch folds inputs of one dtype")
-            if length > 1 and x.stride(0) != 1:
+            if length > 1 and x.stride(-1) != 1:
                 raise ValueError("fold inputs must be contiguous")
             dtype = x.dtype
+        _check_carry(carry, weights, acc, length, device)
     return dtype
+
+
+def _check_carry(carry, weights, acc: str, length: int,
+                 device: torch.device) -> None:
+    if carry is None:
+        return
+    want = acc_dtype(weights is not None, acc)
+    if carry.device != device or carry.dtype != want \
+            or carry.shape != (length,) \
+            or (length > 1 and carry.stride(0) != 1):
+        raise ValueError(
+            f"a carry must be a contiguous ({length},) {want} tensor on "
+            f"{device}, got {tuple(carry.shape)} {carry.dtype} on "
+            f"{carry.device}")
 
 
 @functools.cache
@@ -132,42 +201,53 @@ def _launcher():
                            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
 
 
-def _table(nodes, acc: str, device: torch.device):
+def _table(nodes, carries, divisors, acc: str, finalize: bool,
+           device: torch.device):
     """The kernel's node table (layout in ``csrc/fedavg_stream.cu``) as a
     host int64 array, the allocated outputs, and the longest node."""
     n = len(nodes)
-    n_slots = sum(len(inputs) for inputs, _ in nodes)
+    n_slots = sum(_rows(inputs) for inputs, _ in nodes)
     table = np.zeros(n * (_META + 1) + 2 * n_slots, np.int64)
     meta = table[:n * _META].reshape(n, _META)
     div = table[n * _META:n * (_META + 1)].view(np.float64)
     ptr = table[n * (_META + 1):n * (_META + 1) + n_slots]
     wts = table[n * (_META + 1) + n_slots:].view(np.float64)
     outs, slot, max_len = [], 0, 0
-    for j, (inputs, weights) in enumerate(nodes):
-        length = int(inputs[0].shape[0])
-        out = torch.empty(length, dtype=torch.float32, device=device)
+    for j, ((inputs, weights), carry) in enumerate(zip(nodes, carries)):
+        stack = isinstance(inputs, torch.Tensor)
+        rows = _rows(inputs)
+        length = int(inputs.shape[1] if stack else inputs[0].shape[0])
+        out = torch.empty(length, device=device, dtype=torch.float32
+                          if finalize else acc_dtype(weights is not None, acc))
         outs.append(out)
         max_len = max(max_len, length)
-        meta[j] = (length, out.data_ptr(), slot, len(inputs), _MODES[
-            None if weights is None else acc])
-        div[j] = _divisor(len(inputs), weights, acc)
-        w = [1.0] * len(inputs) if weights is None else (
+        meta[j] = (length, out.data_ptr(), slot, rows, _MODES[
+            None if weights is None else acc],
+            0 if carry is None else carry.data_ptr(), int(finalize))
+        div[j] = _divisor(rows, weights, acc) if divisors is None \
+            else float(divisors[j])
+        wts[slot:slot + rows] = 1.0 if weights is None else (
             _f32_weights(weights) if acc == "f32" else
             [float(x) for x in weights])
-        for x, wi in zip(inputs, w):
-            ptr[slot] = x.data_ptr()
-            wts[slot] = wi
-            slot += 1
+        if stack:
+            ptr[slot:slot + rows] = inputs.data_ptr() + np.arange(
+                rows, dtype=np.int64) * (inputs.stride(0)
+                                         * inputs.element_size())
+        else:
+            ptr[slot:slot + rows] = [x.data_ptr() for x in inputs]
+        slot += rows
     return table, outs, max_len
 
 
-def _launch(nodes, acc: str, device: torch.device) -> list[torch.Tensor]:
+def _launch(nodes, carries, divisors, acc: str, finalize: bool,
+            device: torch.device) -> list[torch.Tensor]:
     """One kernel launch over ``nodes`` (at most ``_MAX_NODES``)."""
     global LAUNCHES
-    dtype = _check_inputs(nodes, device)
+    dtype = _check_inputs(nodes, carries, acc, device)
     launch = _launcher()
-    table, outs, max_len = _table(nodes, acc, device)
-    n, n_slots = len(nodes), sum(len(inputs) for inputs, _ in nodes)
+    table, outs, max_len = _table(nodes, carries, divisors, acc, finalize,
+                                  device)
+    n, n_slots = len(nodes), sum(_rows(inputs) for inputs, _ in nodes)
     if max_len == 0:
         return outs
     # freed on return: the caching allocator hands the block out again only
@@ -182,29 +262,52 @@ def _launch(nodes, acc: str, device: torch.device) -> list[torch.Tensor]:
     return outs
 
 
-def fold_nodes(nodes: Sequence[tuple], acc: str = "f64"
+def fold_nodes(nodes: Sequence[tuple], acc: str = "f64", *,
+               carry: Sequence[torch.Tensor | None] | None = None,
+               finalize: bool = True,
+               divisors: Sequence[float] | None = None
                ) -> list[torch.Tensor]:
     """Fold many averaging nodes: ``nodes`` is a sequence of
     ``(inputs, weights)`` pairs, ``weights`` ``None`` for the unweighted
-    mean. CUDA tensors go through the kernel, every node of the call in one
-    launch; CPU tensors through :func:`fedavg_stream_plain`. Returns one
-    (L_j,) f32 mean per node."""
-    nodes = [(list(inputs), weights) for inputs, weights in nodes]
+    mean and ``inputs`` a sequence of 1-D tensors or one 2-D tensor whose
+    rows are the inputs. CUDA tensors go through the kernel, every node of
+    the call in one launch; CPU tensors through
+    :func:`fedavg_stream_plain`. Returns one (L_j,) f32 mean per node.
+
+    ``carry`` gives each node an accumulator to start from (or None), in
+    the node's :func:`acc_dtype`; ``finalize=False`` returns the raw
+    accumulators instead of the means; ``divisors`` replaces each node's
+    count or weight sum in the divide."""
+    nodes = [(inputs if isinstance(inputs, torch.Tensor) else list(inputs),
+              weights) for inputs, weights in nodes]
     if not nodes:
         return []
     if acc not in ("f64", "f32"):
         raise ValueError(f"acc must be 'f64' or 'f32', got {acc!r}")
+    carries = [None] * len(nodes) if carry is None else list(carry)
+    if len(carries) != len(nodes) or (divisors is not None
+                                      and len(divisors) != len(nodes)):
+        raise ValueError("carry and divisors take one entry per node")
     device = nodes[0][0][0].device
     if device.type == "cpu":
-        if any(x.device.type != "cpu" for inputs, _ in nodes for x in inputs):
+        if any(x.device.type != "cpu" for inputs, _ in nodes for x in inputs) \
+                or any(c is not None and c.device.type != "cpu"
+                       for c in carries):
             raise ValueError("fold inputs span devices")
-        return [fedavg_stream_plain(inputs, weights, acc)
-                for inputs, weights in nodes]
+        for (inputs, weights), c in zip(nodes, carries):
+            _check_carry(c, weights, acc, int(inputs[0].shape[0]), device)
+        return [fedavg_stream_plain(
+            inputs, weights, acc, carry=c, finalize=finalize,
+            divisor=None if divisors is None else divisors[j])
+            for j, ((inputs, weights), c) in enumerate(zip(nodes, carries))]
     if device.type != "cuda":
         raise ValueError(f"no fold kernel for device {device}")
     outs: list[torch.Tensor] = []
     for lo in range(0, len(nodes), _MAX_NODES):
-        outs.extend(_launch(nodes[lo:lo + _MAX_NODES], acc, device))
+        hi = lo + _MAX_NODES
+        outs.extend(_launch(nodes[lo:hi], carries[lo:hi],
+                            None if divisors is None else divisors[lo:hi],
+                            acc, finalize, device))
     return outs
 
 

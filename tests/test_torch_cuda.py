@@ -365,3 +365,143 @@ def test_federated_lm_smoke_round_on_card():
         torch.tensor(on_card["rounds"][0]["client_losses"]),
         torch.tensor(on_cpu["rounds"][0]["client_losses"]), rtol=1e-3,
         atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the fold kernel's carry form, population rounds and stale folds
+# ---------------------------------------------------------------------------
+
+CARRY_CASES = ["f32_chunks", "f64_chunks", "one_row_chunk", "ragged_last",
+               "many_nodes", "misaligned", "weighted_f64_noninteger"]
+
+
+def _carry_case(case):
+    """(chunks per node, weighted) of one carry case: each node folds its
+    chunks in turn, carrying the raw accumulator; every node of a case has
+    the same number of chunks."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = lambda n, length=4096: torch.randn(n, length, generator=g,
+                                              device="cuda")
+    if case == "f32_chunks":
+        return [[rows(512), rows(512), rows(77)]], False
+    if case == "f64_chunks":
+        return [[rows(512), rows(512), rows(77)]], True
+    if case == "one_row_chunk":
+        return [[rows(1), rows(1), rows(1)], [rows(3), rows(1), rows(1)]], \
+            False
+    if case == "ragged_last":
+        return [[rows(512, 33_333), rows(5, 33_333)]], True
+    if case == "many_nodes":
+        return [[rows(32, 4096 + 7 * j) for _ in range(3)]
+                for j in range(40)], True
+    if case == "misaligned":
+        base = torch.randn(16 * 10_008 + 32, generator=g, device="cuda")
+        views = [base[k + 10_008 * i:k + 10_008 * i + 9_999]
+                 for i, k in enumerate((1, 2, 3, 5, 6, 7, 9, 11, 13, 14,
+                                        15, 17, 18, 19, 21, 22))]
+        return [[views[:7], views[7:]]], False
+    return [[rows(9, 1_001)]], "weights"
+
+
+def _fold_carried(chunks_per_node, weighted, fold):
+    """Every node's chunks through ``fold`` (kernel or plain), one call per
+    chunk step for all nodes, the last one dividing by the total."""
+    n_rows = lambda x: int(x.shape[0]) if isinstance(x, torch.Tensor) \
+        else len(x)
+    n_steps = len(chunks_per_node[0])
+    divs = [float(sum(n_rows(x) for x in chunks))
+            for chunks in chunks_per_node]
+    accs = [None] * len(chunks_per_node)
+    raws = []
+    for step in range(n_steps):
+        nodes = []
+        for chunks in chunks_per_node:
+            x = chunks[step]
+            w = None if not weighted else (
+                [0.5 + 0.25 * i for i in range(n_rows(x))]
+                if weighted == "weights" else [1.0] * n_rows(x))
+            nodes.append((x, w))
+        accs = fold(nodes, accs, step == n_steps - 1, divs)
+        raws.append(accs)
+    return accs, raws
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARRY_CASES)
+def test_carry_form_bit_equal_plain_on_card(case):
+    """The carry form: raw accumulators after each chunk (f32 or f64) and
+    the final means, the kernel against its plain version bit for bit."""
+    _need_card()
+    chunks, weighted = _carry_case(case)
+
+    def kernel(nodes, carry, fin, divs):
+        return fs.fold_nodes(nodes, carry=carry, finalize=fin,
+                             divisors=divs if fin else None)
+
+    def plain(nodes, carry, fin, divs):
+        return [fs.fedavg_stream_plain(x, w, carry=c, finalize=fin,
+                                       divisor=d if fin else None)
+                for (x, w), c, d in zip(nodes, carry, divs)]
+
+    before = fs.LAUNCHES
+    got, got_raw = _fold_carried(chunks, weighted, kernel)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == before + len(got_raw)
+    want, want_raw = _fold_carried(chunks, weighted, plain)
+    for gs, ws in zip(got_raw, want_raw):
+        for a, b in zip(gs, ws):
+            assert a.dtype == b.dtype
+            assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["gradssharding", "lambda_fl", "lifl",
+                                      "geo_tiered"])
+def test_population_round_on_card_equals_cpu(topology):
+    """A population round over 1,300 clients (three chunks) folds through
+    the kernel's carry form on the card and equals the CPU's round."""
+    _need_card()
+    from repro_torch.serverless.population import ClientPopulation
+    pop = ClientPopulation(1_300, grad_elems=1_031, seed=5)
+    kw = dict(topology=topology, schedule="pipelined", population=pop,
+              upload=smoke.UPLOAD, participation_k=1_200,
+              faults=smoke.FAULTS)
+    before = fs.LAUNCHES
+    on_card = FederatedSession(device="cuda", **kw).round()
+    assert fs.LAUNCHES > before
+    on_cpu = FederatedSession(device="cpu", **kw).round()
+    assert on_card.avg_flat.device.type == "cuda"
+    assert smoke.record(on_card) == smoke.record(on_cpu)
+    assert on_card.codec_error == on_cpu.codec_error
+
+
+@pytest.mark.cuda
+def test_stale_weighted_round_batched_equals_streaming_on_card(monkeypatch):
+    """Three rounds with stale re-entry: the batched engine folds the
+    staleness-weighted nodes in the kernel (some weight ≠ 1.0) and equals
+    the streaming engine on the card bit for bit."""
+    _need_card()
+    weights = []
+    real = fs.fold_nodes
+
+    def spy(nodes, acc="f64", **kw):
+        nodes = list(nodes)
+        weights.extend(w for _x, w in nodes if w is not None)
+        return real(nodes, acc, **kw)
+
+    monkeypatch.setattr(fs, "fold_nodes", spy)
+    chains = {}
+    for engine in ("batched", "streaming"):
+        session, results = smoke.robust_session(engine, "cuda")
+        chains[engine] = [r.avg_flat for r in results]
+        assert any(r.stale_folded for r in results)
+    assert any(w != 1.0 for ws in weights for w in ws)
+    for a, b in zip(chains["batched"], chains["streaming"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

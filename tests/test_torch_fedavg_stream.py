@@ -45,11 +45,11 @@ def _port_inputs(x, dtype):
     return t, t.to(torch.float32).numpy()
 
 
-def _numpy_left_fold(x):
+def _numpy_left_fold(x, divide=True):
     acc = x[0].copy()
     for row in x[1:]:
         acc += row
-    return acc / np.float32(len(x))
+    return acc / np.float32(len(x)) if divide else acc
 
 
 def _weights(n, seed=0):
@@ -135,38 +135,44 @@ def _mixed_nodes():
 
 def _decode_table(table, n_nodes, tensors):
     """Evaluate a kernel node table in numpy, as the kernel reads it."""
-    meta = table[:n_nodes * 5].reshape(n_nodes, 5)
-    div = table[n_nodes * 5:n_nodes * 6].view(np.float64)
-    n_slots = (len(table) - n_nodes * 6) // 2
-    ptr = table[n_nodes * 6:n_nodes * 6 + n_slots]
-    wts = table[n_nodes * 6 + n_slots:].view(np.float64)
+    cols = fs._META
+    meta = table[:n_nodes * cols].reshape(n_nodes, cols)
+    div = table[n_nodes * cols:n_nodes * (cols + 1)].view(np.float64)
+    n_slots = (len(table) - n_nodes * (cols + 1)) // 2
+    ptr = table[n_nodes * (cols + 1):n_nodes * (cols + 1) + n_slots]
+    wts = table[n_nodes * (cols + 1) + n_slots:].view(np.float64)
     by_ptr = {t.data_ptr(): t.numpy() for t in tensors}
     outs = []
-    for length, _out, slot, nc, mode in meta:
+    for length, _out, slot, nc, mode, carry, fin in meta:
         xs = [by_ptr[int(p)][:length] for p in ptr[slot:slot + nc]]
         ws = wts[slot:slot + nc]
         d = div[len(outs)]
+        if carry:
+            xs = [by_ptr[int(carry)][:length]] + xs
+            ws = np.concatenate([[1.0], ws])
         if mode == 0:
-            outs.append(_numpy_left_fold(np.stack(xs)) if length
-                        else np.empty(0, np.float32))
-            assert d == nc
+            acc = _numpy_left_fold(np.stack(xs), divide=False) if length \
+                else np.empty(0, np.float32)
+            outs.append(acc / np.float32(d) if fin else acc)
+            assert carry or d == nc
         elif mode == 1:
             acc = xs[0].astype(np.float64) * ws[0]
             for xi, wi in zip(xs[1:], ws[1:]):
                 acc += xi.astype(np.float64) * wi
-            outs.append((acc / d).astype(np.float32))
+            outs.append((acc / d).astype(np.float32) if fin else acc)
         else:
             acc = xs[0] * np.float32(ws[0])
             for xi, wi in zip(xs[1:], ws[1:]):
                 acc += xi * np.float32(wi)
-            outs.append(acc / np.float32(d))
+            outs.append(acc / np.float32(d) if fin else acc)
     return outs, meta
 
 
 @pytest.mark.parametrize("acc", ["f64", "f32"])
 def test_node_table_encodes_each_node(acc):
     nodes = _mixed_nodes()
-    table, outs, max_len = fs._table(nodes, acc, torch.device("cpu"))
+    table, outs, max_len = fs._table(nodes, [None] * len(nodes), None, acc,
+                                     True, torch.device("cpu"))
     assert max_len == 30_000
     decoded, meta = _decode_table(
         table, len(nodes), [x for inputs, _ in nodes for x in inputs])
@@ -174,6 +180,7 @@ def test_node_table_encodes_each_node(acc):
         assert row[0] == len(out) == inputs[0].shape[0]
         assert row[1] == out.data_ptr()
         assert row[4] == (0 if weights is None else fs._MODES[acc])
+        assert (row[5], row[6]) == (0, 1)          # no carry, finalize
         want = fs.fedavg_stream_plain(inputs, weights, acc).numpy()
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 

@@ -44,6 +44,8 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
         "import repro_torch.core.fedavg, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.configs, repro_torch.launch.train\n"
         "import repro_torch.launch.federated_lm\n"
+        "import repro_torch.core.sharded_tree, repro_torch.core.geo_tiered\n"
+        "import repro_torch.serverless.population\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

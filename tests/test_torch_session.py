@@ -17,10 +17,13 @@ torch = pytest.importorskip("torch")
 from repro.api import FederatedSession as RefSession  # noqa: E402
 from repro.core import cost_model as ref_cm  # noqa: E402
 from repro.core.cost_model import UploadModel as RefUpload  # noqa: E402
+from repro.core.topology import available_topologies as \
+    ref_available_topologies  # noqa: E402
 from repro_torch import smoke  # noqa: E402
 from repro_torch.api import FederatedSession, SessionConfig  # noqa: E402
 from repro_torch.core import agg_engine  # noqa: E402
 from repro_torch.core.topology import available_topologies  # noqa: E402
+from repro_torch.serverless.population import ClientPopulation  # noqa: E402
 
 REF_UPLOAD = RefUpload(mbps=16.0, jitter_s=3.0, rate_jitter=0.5, seed=11)
 PINNED = smoke.expected_invariants()
@@ -136,11 +139,35 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FederatedSession(device="cpu", population=object())
+    """`host_mesh` is still unported and raises; `population` is ported:
+    a population-backed session runs its round with no client gradients
+    and equals the eager round over the materialized cohort."""
     with pytest.raises(NotImplementedError, match="item 10"):
         FederatedSession(device="cpu", host_mesh=2)
+    pop = ClientPopulation(smoke.N_CLIENTS, grad_elems=smoke.GRAD_ELEMS,
+                           seed=1234)
+    lazy = FederatedSession(device="cpu", population=pop).round()
+    eager = FederatedSession(device="cpu").round(pop.materialize(0))
+    assert smoke.record(lazy) == smoke.record(eager)
 
 
 def test_three_builtin_topologies():
-    assert available_topologies() == ("gradssharding", "lambda_fl", "lifl")
+    """The reference's registry assertion: the builtins and the plugins
+    (`sharded_tree`, `geo_tiered`) are registered on import, as in the
+    reference."""
+    names = available_topologies()
+    assert set(smoke.TOPOLOGIES) <= set(names)
+    assert "sharded_tree" in names and "geo_tiered" in names
+    assert set(ref_available_topologies()) >= {
+        "gradssharding", "lambda_fl", "lifl", "sharded_tree", "geo_tiered"}
+
+
+def test_all_pinned_smoke_keys_on_cpu():
+    """Every group the port reproduces: 363 of the file's 366 keys (the
+    3 `roofline/host_fold` keys belong to the unported multi-device
+    engine)."""
+    expected = smoke.expected_invariants(groups=smoke.GROUPS)
+    assert len(expected) == 363
+    got = smoke.all_invariants("cpu")
+    assert set(got) == set(expected)
+    assert smoke.mismatches(got, expected) == []
