@@ -26,7 +26,10 @@ Phases, each fatal on failure:
    then every engine at N = 12 on the card against the CPU, under every
    codec; then the 159 keys of the faults, plugin-topology and population
    groups (``sharded_tree``, ``sharded_tree_equals_lambda_fl``, ``fault``,
-   ``robust``, ``geo_tiered``, ``population``): 363 of the file's 366;
+   ``robust``, ``geo_tiered``, ``population``) and the 3 of the host
+   fold's worker sweep (``roofline/host_fold``): all 366 of the file's
+   keys; the sweep's six inputs also fold on the card, by the table kernel
+   (a list) and by the carry route (one 2-D stack), to its pinned hash;
 5. full width: GradsSharding, λ-FL and LIFL rounds through
    ``FederatedSession(..., engine="batched", device="cuda")`` on 20 VGG-16
    gradients made on the card from a seed; the launch counter must grow,
@@ -46,7 +49,9 @@ Phases, each fatal on failure:
    (a) the fused-SGD kernel against its plain version bit for bit, on each
    of the 12 parameter leaves with real gradients of one local step, at a
    ragged length, on a misaligned view, with n = 0 (no launch) and with
-   bf16 parameters or gradients; the rmsnorm kernel against its plain
+   bf16 parameters or gradients, with p, g and v at different offsets
+   modulo 16 bytes, and at lengths 1, 3 and 5; the rmsnorm kernel against
+   its plain
    version at its tolerance (f32: rtol 1e-5, atol 1e-6; bf16: one ulp), on
    the real (512, 2048) bf16 activations at layer 0's first norm, at
    d = 64, 2048 and 8192 in f32 and bf16 with a row count that is not a
@@ -60,7 +65,8 @@ Phases, each fatal on failure:
    client loss below the first's, and each round's mean equal to the plain
    fold of the four client deltas bit for bit; (c) the fused-SGD kernel
    over one step's 12 leaves and rmsnorm at (512, 2048) bf16 beside their
-   bounds, plain versions and one PyTorch call each, the host walls of a
+   bounds, plain versions and one PyTorch call each (fused-SGD and
+   ``torch.optim.SGD(fused=True)`` also by device time), the host walls of a
    client's local training and of an aggregation round, and the peak
    device memory; rmsnorm and ``F.rms_norm`` by events around one call
    timed in turns, by host time per call, and by device time per call
@@ -83,12 +89,14 @@ Phases, each fatal on failure:
 10. the population engine: the CI scale job's round (``geo_tiered``, N =
    10^5, K = 4,096, its faults and upload model) and GradsSharding rounds
    at N = 10^5 and 10^6 (``benchmarks/scale_bench.py``'s upload model and
-   lifted timeout), their folds in the kernel's carry form (one launch a
+   lifted timeout), their folds in the kernel's carry route (one launch a
    512-row chunk), each mean bit for bit against the plain chunked fold of
    the same rows on the card; host wall, host RSS peak of the round and
    device peak, which must stay within four chunks and not grow with N;
-   then one carry launch at the population's shape, f32 and f64, beside
-   its bound, its plain version and ``torch.sum`` over the chunk;
+   then one carry launch at the population's shape, f32 and f64, by
+   device time beside its bound, its plain version, ``torch.sum`` over the
+   chunk and the same call on the table kernel (its table built once), and
+   the wrapper's host time a call;
 11. one population round under ``qsgd8`` (N = 64, GradsSharding and
    ``geo_tiered``): the codec kernels run through the population's decode
    and the round equals the eager round over the materialized cohort.
@@ -261,8 +269,11 @@ def device_ms(fn, tag: str | None = None):
             for _ in range(PROFILED_CALLS):
                 fn()
             torch.cuda.synchronize()
+        # a user annotation (an optimizer's step range) is listed as a
+        # device activity spanning its kernels: not a kernel of its own
         times = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
                  and (tag is None or tag in e.name)]
         if times:
             return sum(times) / PROFILED_CALLS / 1e3, \
@@ -510,6 +521,7 @@ def phase_codec_kernels(q, tk, grads, plan_uniform):
 
 
 def phase_pinned(fs, smoke, FederatedSession):
+    import torch
     fs.LAUNCHES = 0
     t0 = time.perf_counter()
     got = smoke.main_path_invariants("cuda")
@@ -582,11 +594,33 @@ def phase_pinned(fs, smoke, FederatedSession):
         fail(f"{len(bad)} of {len(expected)} pinned fault, robust, "
              f"sharded_tree, geo_tiered and population keys differ on the "
              f"card:\n" + "\n".join(bad[:20]))
-    total = len(smoke.expected_invariants(groups=smoke.GROUPS))
     print(f"    pinned sharded_tree, fault, robust, geo_tiered and "
           f"population keys on cuda: {len(expected)}/{len(expected)} "
-          f"equal expected_smoke.json ({time.perf_counter() - t0:.1f} s); "
-          f"{total} keys in all")
+          f"equal expected_smoke.json ({time.perf_counter() - t0:.1f} s)")
+
+    # the host fold's worker sweep, and its inputs folded on the card
+    got_roof = smoke.roofline_invariants()
+    expected = smoke.expected_invariants(groups=("roofline",))
+    bad = smoke.mismatches(got_roof, expected)
+    if len(expected) != 3 or set(got_roof) != set(expected) or bad:
+        fail(f"{len(bad)} of {len(expected)} pinned roofline/host_fold keys "
+             f"differ:\n" + "\n".join(bad))
+    xs = [torch.from_numpy(x).cuda() for x in smoke.roofline_inputs()]
+    want = expected["roofline/host_fold/avg_hash"]
+    for label, node in (("table kernel", (xs, None)),
+                        ("carry route", (torch.stack(xs), None))):
+        got_hash = smoke.avg_hash(fs.fold_nodes([node])[0])
+        if got_hash != want:
+            fail(f"the roofline inputs on the card's {label} hash to "
+                 f"{got_hash}, pinned {want}")
+    total = len(smoke.expected_invariants(groups=smoke.GROUPS))
+    n_got = len(got) + len(got_codec) + len(got_new) + len(got_roof)
+    if total != 366 or n_got != total:
+        fail(f"{n_got} keys checked on the card of {total} pinned")
+    print(f"    pinned roofline/host_fold keys: 3/3 (host fold pool of "
+          f"{smoke.FOLD_WORKER_GRID} workers); its six inputs on the card "
+          f"hash to {want} by the table kernel and the carry route; "
+          f"{n_got} keys in all")
 
 
 def phase_full_width(fs, grads, cm, plan_uniform, FederatedSession, peak):
@@ -904,6 +938,17 @@ def phase_lm_kernels(sgd, rn, layers, models, data, cfg, params):
                   rnd(70_001).bfloat16(), rnd(70_001))
         check_sgd("f32 p, bf16 g", rnd(70_001), rnd(70_001).bfloat16(),
                   rnd(70_001))
+        # p, g and v 4, 8 and 12 bytes off alignment: no index aligns them
+        # all, the whole leaf takes the scalar loop
+        check_sgd("mixed offsets", *(rnd(100_004)[k:k + 100_001]
+                                     for k in (1, 2, 3)))
+        check_sgd("bf16 p 4 bytes in, g and v 8 (a 2-element head)",
+                  rnd(100_004).bfloat16()[2:], rnd(100_004)[2:],
+                  rnd(100_004)[2:])
+        for n in (1, 3, 5):
+            check_sgd(f"n = {n}", rnd(n), rnd(n), rnd(n))
+            check_sgd(f"n = {n}, 4 bytes in", rnd(n + 1)[1:], rnd(n + 1)[1:],
+                      rnd(n + 1)[1:])
         before = sgd.LAUNCHES
         check_sgd("n = 0", rnd(0), rnd(0), rnd(0))
         if sgd.LAUNCHES != before:
@@ -1060,15 +1105,26 @@ def phase_lm_timings(sgd, rn, layers, cfg, params, grads, peak):
         opt = torch.optim.SGD(opt_params, lr=lr, momentum=mu, foreach=True)
         library = "torch.optim.SGD(foreach=True).step()"
     opt.step()                               # creates the momentum buffers
+    step = lambda: [sgd.fused_sgd(a, b, c, lr, mu) for a, b, c in zip(p, g, v)]
     rows["fused_sgd"] = {
         "elements": n, "bytes": nbytes, "ops": ops,
-        "ms": time_ms(lambda: [sgd.fused_sgd(a, b, c, lr, mu)
-                               for a, b, c in zip(p, g, v)]),
+        "ms": time_ms(step),
         "plain_ms": time_ms(lambda: [sgd.fused_sgd_plain(a, b, c, lr, mu)
                                      for a, b, c in zip(p, g, v)]),
         "library_ms": time_ms(opt.step), "library": library,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    # device time a step, in turns (kernel, library, library, kernel): the
+    # kernel's 12 launches, and every kernel of the library's step
+    turns = {"device": [], "library_device": []}
+    for key in ("device", "library_device", "library_device", "device"):
+        got = device_ms(step, "fused_sgd") if key == "device" \
+            else device_ms(opt.step)
+        turns[key].append(got[0] if got else None)
+    for key, got in turns.items():
+        rows["fused_sgd"][f"{key}_ms"] = None if None in got \
+            else statistics.mean(got)
+    rows["fused_sgd"]["device_ms_turns"] = turns
     del opt, opt_params, p, v
     tokens = torch.randint(0, 256, (LM_RUN["batch"], LM_RUN["seq"]),
                            device="cuda")
@@ -1111,6 +1167,15 @@ def phase_lm_timings(sgd, rn, layers, cfg, params, grads, peak):
               f"ms plain, {row['library_ms']:.4f} ms {row['library']}, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
               f"{100 * row['bound_share']:.1f}% of bound")
+    row = rows["fused_sgd"]
+    if row["device_ms"] is None or row["library_device_ms"] is None:
+        print("    fused_sgd device times: the profiler recorded no device "
+              "activity; not measured")
+    else:
+        print(f"    fused_sgd by device time a step, in turns: kernel "
+              f"{row['device_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound), "
+              f"{row['library']} {row['library_device_ms']:.4f} ms")
     row = rows["rmsnorm"]
     if row["device_ms"] is None:
         print("    rmsnorm device times: the profiler recorded no device "
@@ -1174,7 +1239,7 @@ def phase_lm_profile(models, data, cfg, params):
     # timings of phase 7 (c) also hold the wrapper's host work whenever
     # the device waits for it
     ours = {}
-    for tag in ("fused_sgd_kernel", "rmsnorm_kernel"):
+    for tag in ("fused_sgd", "rmsnorm_kernel"):      # both fused_sgd kernels
         times = [e.time_range.elapsed_us() / 1e3 for e in kernels
                  if tag in e.name]
         ours[tag] = {"launches": len(times), "device_ms": sum(times),
@@ -1578,42 +1643,78 @@ def phase_population_codec(fs, q, FederatedSession, ClientPopulation):
     return rows
 
 
-def phase_carry_timing(fs, peak):
-    """The carry form at the population's shapes: one 512-row chunk of
+def phase_carry_timing(fs, build, peak):
+    """The carry route at the population's shapes: one 512-row chunk of
     4,096-element rows into an f32 accumulator (GradsSharding) and into
-    an f64 one (the weighted plans), beside the bound, the plain version
-    and ``torch.sum`` over the chunk (the same sum without the carry)."""
+    an f64 one (the weighted plans), by device time in turns beside
+    ``torch.sum`` over the chunk (the same sum without the carry) and the
+    same call on the table kernel (its table built and copied once, as a
+    measurement); then its bound, its plain version, events around one
+    call and the wrapper's host time a call."""
     import torch
     from repro_torch.serverless import population as popmod
     bw, f32, f64 = peak
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     n, L = popmod.CHUNK_ROWS, POP_GRAD_ELEMS
     rows = torch.randn(n, L, generator=gen, device="cuda")
+    dev = rows.device
     out = {}
     for name, weighted in (("carry_f32", False), ("carry_f64", True)):
         w = [1.0] * n if weighted else None
         acc = fs.fold_nodes([(rows, w)], finalize=False)[0]
         kernel = lambda: fs.fold_nodes([(rows, w)], carry=[acc],
-                                       finalize=False)
+                                       finalize=False)[0]
         plain = lambda: fs.fedavg_stream_plain(rows, w, carry=acc,
                                                finalize=False)
+        table, table_outs, max_len = fs._table([(rows, w)], [acc], None,
+                                               "f64", False, dev)
+        dev_table = torch.from_numpy(table).to(dev)
+
+        def table_route():
+            rc = fs._launcher()(dev_table.data_ptr(), 1, n, max_len, 0,
+                                build.raw_stream(dev.index))
+            if rc != 0:
+                fail(f"fedavg_fold_launch: CUDA error {rc}")
+            return table_outs[0]
+        want = plain()
+        for label, fn in (("carry route", kernel), ("table kernel",
+                                                    table_route)):
+            got = fn()
+            ints = torch.int64 if got.dtype == torch.float64 else torch.int32
+            if got.dtype != acc.dtype or not torch.equal(
+                    got.view(ints), want.view(ints)):
+                fail(f"{name} on the {label} != plain")
+        calls = {"device": (kernel, "fedavg_carry_kernel"),
+                 "library_device": (lambda: torch.sum(rows, dim=0), None),
+                 "table_device": (table_route, "fedavg_fold_kernel")}
+        turns = {key: [] for key in calls}
+        for key in (*calls, *reversed(calls)):
+            got = device_ms(*calls[key])
+            turns[key].append(got[0] if got else None)
         nbytes = n * L * 4 + 2 * L * acc.element_size()
         ops = n * L
         t_bytes, t_ops = nbytes / bw, ops / (f64 if weighted else f32)
-        got = device_ms(kernel, "fedavg_fold_kernel")
         row = {"rows": n, "elements": L, "bytes": nbytes, "ops": ops,
                "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                "library_ms": time_ms(lambda: torch.sum(rows, dim=0)),
-               "device_ms": got[0] if got else None,
+               "host_us": host_us(kernel),
                "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "device_ms_turns": turns}
+        for key, got in turns.items():
+            row[f"{key}_ms"] = None if None in got else statistics.mean(got)
         out[name] = row
-        dev = "not measured" if got is None else \
-            f"{row['device_ms']:.4f} ms ({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound)"
-        print(f"     {name}: one {n} x {L} chunk: {row['ms']:.4f} ms kernel "
-              f"(events), device {dev}, plain {row['plain_ms']:.3f} ms, "
-              f"torch.sum {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+        dev_ms = {key: "not measured" if row[f"{key}_ms"] is None else
+                  f"{row[f'{key}_ms'] * 1e3:.2f} us" for key in turns}
+        share = "" if row["device_ms"] is None else \
+            f" ({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound)"
+        print(f"     {name}: one {n} x {L} chunk by device time, in turns: "
+              f"carry route {dev_ms['device']}{share}, torch.sum "
+              f"{dev_ms['library_device']}, table kernel "
+              f"{dev_ms['table_device']}; bound {row['bound_ms'] * 1e3:.3f} "
+              f"us ({row['bound_by']}); events {row['ms']:.4f} ms, host "
+              f"{row['host_us']:.1f} us a call, plain {row['plain_ms']:.3f} "
+              f"ms")
     return out
 
 
@@ -1695,7 +1796,7 @@ def main() -> None:
         LambdaLimits)
     pop_codec = phase_population_codec(fs, q, FederatedSession,
                                        ClientPopulation)
-    carry_rows = phase_carry_timing(fs, peaks(name))
+    carry_rows = phase_carry_timing(fs, build, peaks(name))
 
     head = rows[0]                       # the GradsSharding wave
     print(json.dumps({"waves": rows, "round_walls_s": walls,
@@ -1750,6 +1851,9 @@ def main() -> None:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "equal_plain": exact})
+    step = lm_rows["fused_sgd"]
+    kernels[-2].update({"device_ms": step["device_ms"],
+                        "library_device_ms": step["library_device_ms"]})
     norm = lm_rows["rmsnorm"]
     kernels[-1].update({"device_ms": norm["device_ms"],
                         "library_device_ms": norm["library_device_ms"],

@@ -8,14 +8,23 @@ its wrappers ``fedavg_shards`` / ``fedavg_multi`` (``repro/kernels/ops.py``).
 
 The fold is bound by device-memory bytes: a node of N inputs of L f32
 elements reads N·L·4 bytes and writes L·4, so ``(N+1)·L·4`` bytes for at
-most two flops per input element. The CUDA kernel
-(``csrc/fedavg_stream.cu``) therefore makes one pass: each thread owns a
-few elements, walks the clients 0..N-1 in order with the running sum in
-registers, and divides at the end of the same loop, so the accumulator
-never touches device memory. One launch folds every node of a dependency
-wave: the wrapper hands the kernel a device table of per-node lengths,
-output pointers and divisors and per-(node, client) input pointers and
-weights, instead of concatenating the stacks as the TPU wrapper does.
+most two flops per input element. The CUDA source
+(``csrc/fedavg_stream.cu``) therefore makes one pass: each thread owns
+elements of one node, walks the clients 0..N-1 in order with the running
+sum in registers, and divides at the end of the same loop, so the
+accumulator never touches device memory. It has two routes:
+
+* the table kernel, for several nodes or 1-D inputs (a round's dependency
+  waves): one launch folds every node of a wave, from a device table of
+  per-node lengths, output pointers and divisors and per-(node, client)
+  input pointers and weights, instead of concatenating the stacks as the
+  TPU wrapper does;
+* the carry route, for one node whose inputs are the rows of one 2-D
+  tensor (the population's chunks): every argument by value, a row's
+  address ``base + i·stride``, a ring of row tiles in shared memory filled
+  by TMA (16-byte aligned base and row stride) or ``cp.async``. It builds
+  no table and copies nothing to the device, except the weights of a call
+  whose weights are not all exactly 1.0.
 
 Arithmetic, per element, with the reference engine's exact bits:
 
@@ -54,6 +63,7 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 
 _MODES = {None: 0, "f64": 1, "f32": 2}
+_SUM_F64 = 3                  # the carry route's mode 1 with all weights 1.0
 _META = 7                     # columns of the per-node table rows
 _MAX_NODES = 65535            # grid.y limit of one launch
 _INPUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -201,6 +211,69 @@ def _launcher():
                            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
 
 
+@functools.cache
+def _carry_launcher():
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    return build.launcher("fedavg_stream", "fedavg_carry_launch",
+                          [ptr, i64, i64, i64, i32, i32, ptr, ptr, i32,
+                           ctypes.c_double, i32, ptr, ptr])
+
+
+def _carry_route(nodes) -> bool:
+    """Whether a call goes to the carry route: one node whose inputs are
+    the rows of one 2-D tensor."""
+    return len(nodes) == 1 and isinstance(nodes[0][0], torch.Tensor)
+
+
+def _carry_args(stack: torch.Tensor, weights, carry, divisor, acc: str,
+                finalize: bool, device: torch.device):
+    """The carry route's by-value launch arguments (the C signature of
+    ``fedavg_carry_launch`` in ``csrc/fedavg_stream.cu`` up to the weights
+    pointer), the allocated output, and the f64 weights the kernel reads
+    (None for the unweighted and all-ones calls, which read none)."""
+    n, length = (int(d) for d in stack.shape)
+    stride = stack.stride(0) * stack.element_size()
+    if weights is None:
+        mode, w = _MODES[None], None
+    elif acc == "f32":
+        mode, w = _MODES["f32"], np.asarray(_f32_weights(weights), np.float64)
+    elif list(weights).count(1.0) == n:
+        mode, w = _SUM_F64, None
+    else:
+        mode, w = _MODES["f64"], np.asarray(weights, np.float64)
+    out = torch.empty(length, device=device, dtype=torch.float32
+                      if finalize else acc_dtype(weights is not None, acc))
+    base = stack.data_ptr()
+    tma = base % 16 == 0 and stride % 16 == 0 \
+        and stride >= length * stack.element_size()
+    div = _divisor(n, weights, acc) if divisor is None else float(divisor)
+    args = (base, stride, n, length, int(stack.dtype == torch.bfloat16),
+            int(tma), 0 if carry is None else carry.data_ptr(),
+            out.data_ptr(), mode, div, int(finalize))
+    return args, out, w
+
+
+def _launch_carry(node, carry, divisor, acc: str, finalize: bool,
+                  device: torch.device) -> torch.Tensor:
+    """One carry-route launch over the rows of ``node``'s 2-D tensor."""
+    global LAUNCHES
+    _check_inputs([node], [carry], acc, device)
+    stack, weights = node
+    args, out, w = _carry_args(stack, weights, carry, divisor, acc,
+                               finalize, device)
+    if not out.numel():
+        return out
+    # freed on return, like the table kernel's table
+    w_dev = None if w is None else torch.from_numpy(w).to(device)
+    rc = _carry_launcher()(*args, 0 if w_dev is None else w_dev.data_ptr(),
+                           build.raw_stream(device.index))
+    if rc != 0:
+        raise RuntimeError(f"fedavg_stream carry kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES += 1
+    return out
+
+
 def _table(nodes, carries, divisors, acc: str, finalize: bool,
            device: torch.device):
     """The kernel's node table (layout in ``csrc/fedavg_stream.cu``) as a
@@ -271,8 +344,9 @@ def fold_nodes(nodes: Sequence[tuple], acc: str = "f64", *,
     ``(inputs, weights)`` pairs, ``weights`` ``None`` for the unweighted
     mean and ``inputs`` a sequence of 1-D tensors or one 2-D tensor whose
     rows are the inputs. CUDA tensors go through the kernel, every node of
-    the call in one launch; CPU tensors through
-    :func:`fedavg_stream_plain`. Returns one (L_j,) f32 mean per node.
+    the call in one launch (one node of a 2-D tensor through the carry
+    route); CPU tensors through :func:`fedavg_stream_plain`. Returns one
+    (L_j,) f32 mean per node.
 
     ``carry`` gives each node an accumulator to start from (or None), in
     the node's :func:`acc_dtype`; ``finalize=False`` returns the raw
@@ -302,6 +376,10 @@ def fold_nodes(nodes: Sequence[tuple], acc: str = "f64", *,
             for j, ((inputs, weights), c) in enumerate(zip(nodes, carries))]
     if device.type != "cuda":
         raise ValueError(f"no fold kernel for device {device}")
+    if _carry_route(nodes):
+        return [_launch_carry(nodes[0], carries[0],
+                              None if divisors is None else divisors[0],
+                              acc, finalize, device)]
     outs: list[torch.Tensor] = []
     for lo in range(0, len(nodes), _MAX_NODES):
         hi = lo + _MAX_NODES

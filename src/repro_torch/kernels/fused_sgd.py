@@ -11,7 +11,11 @@ wrapper ``sgd_momentum_update`` (``repro/kernels/ops.py``), which donates
 ``p`` is f32 or bf16 (it keeps its type), ``g`` f32 or bf16, ``v`` f32.
 The update is bound by device-memory bytes: three reads and two writes per
 element, 20 bytes for an f32 ``p``, and three operations. The CUDA kernel
-(``csrc/fused_sgd.cu``) is one grid-stride pass over the flat leaf.
+(``csrc/fused_sgd.cu``) is one grid-stride pass over the flat leaf with
+16-byte vector loads of ``v`` (and of an f32 ``p`` or ``g``; 8 bytes of a
+bf16 one) from the first index where all three are aligned, scalar loads
+before it and at the ragged end; a leaf whose three offsets no index
+aligns runs the scalar loop throughout.
 
 Bits: the kernel rounds every operation to nearest and contracts none, so
 it equals :func:`fused_sgd_plain` on the card bit for bit. ``μ`` and ``η``

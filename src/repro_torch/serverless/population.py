@@ -33,8 +33,9 @@ eager driver bit-for-bit while keeping live state O(active):
   on the device (``scale[:, None] * base[None, :]``, one f32 multiply per
   element) and folded into the running accumulator by
   :func:`repro_torch.kernels.fedavg_stream.fold_nodes` with a carry: on a
-  CUDA device one launch of the fold kernel per chunk, the last one
-  dividing; on the CPU its plain version. Per element that is the
+  CUDA device one launch of the fold kernel's carry route per chunk (the
+  chunk's base pointer and row stride by value), the last one dividing;
+  on the CPU its plain version. Per element that is the
   streaming backend's sequential f32 (unweighted) or f64 all-ones
   weighted fold — the bits of the reference's ``np.add.accumulate``.
   Device memory stays O(one chunk + the live accumulators), whatever N.

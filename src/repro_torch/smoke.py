@@ -19,12 +19,14 @@ so a run can be held against the committed file bit for bit:
   sessions, ``smoke/robust`` (18);
 * :func:`geo_invariants` — the edge → region → global topology,
   ``smoke/geo_tiered`` (33);
-* :func:`population_invariants` — the lazy cohort engine against the
-  eager driver, ``smoke/population`` (24).
+* :func:`population_invariants` — the lazy cohort engine against eager
+  rounds over the materialized cohort, ``smoke/population`` (24);
+* :func:`roofline_invariants` — the host fold's worker sweep,
+  ``roofline/host_fold`` (3): one unweighted node of six inputs through
+  the CPU evaluator on a :class:`ParallelFoldPool` of 1, 2, 4 and 8
+  workers, as ``benchmarks/roofline.py`` runs it.
 
-:func:`all_invariants` runs them all: 363 of the file's 366 keys (the
-other 3, ``roofline/host_fold``, belong to the multi-device engine, which
-is not ported).
+:func:`all_invariants` runs them all: the file's 366 keys.
 """
 from __future__ import annotations
 
@@ -36,8 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch.api import FederatedSession
+from repro_torch.core import agg_engine
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import UploadModel
+from repro_torch.core.fold_pool import CHUNK_ELEMS, ParallelFoldPool
 from repro_torch.core.geo_tiered import GeoTieredTopology
 from repro_torch.core.topology import register_topology
 from repro_torch.serverless.faults import FaultModel, StalenessPolicy
@@ -89,9 +93,16 @@ ROBUST_ROUNDS = 3
 GEO_NAME = "geo_smoke"
 GEO_TIERS = dict(edge_fanin=4, region_fanin=2, edge_mbps=40.0,
                  region_mbps=120.0, backbone_mbps=400.0)
-#: every group this module reproduces
+# the host fold sweep of benchmarks/roofline.py, as its smoke run sizes it
+FOLD_WORKER_GRID = (1, 2, 4, 8)
+ROOFLINE_INPUTS = 6
+ROOFLINE_ELEMS = 4 * CHUNK_ELEMS
+ROOFLINE_SEED = 17
+#: every group this module reproduces; ``roofline`` stands for the
+#: ``roofline/host_fold`` keys, every other group for ``smoke/<group>``
 GROUPS = TOPOLOGIES + ("codec", SHARDED_TREE, "sharded_tree_equals_lambda_fl",
-                       "fault", "robust", "geo_tiered", "population")
+                       "fault", "robust", "geo_tiered", "population",
+                       "roofline")
 
 EXPECTED_PATH = (pathlib.Path(__file__).resolve().parents[2] / "benchmarks"
                  / "expected_smoke.json")
@@ -373,8 +384,42 @@ def population_invariants(device: str = "cuda") -> dict:
     return out
 
 
+def roofline_inputs() -> list[np.ndarray]:
+    """The host fold sweep's inputs (numpy f32, seeded)."""
+    rng = np.random.default_rng(ROOFLINE_SEED)
+    return [rng.standard_normal(ROOFLINE_ELEMS).astype(np.float32)
+            for _ in range(ROOFLINE_INPUTS)]
+
+
+def roofline_invariants() -> dict:
+    """The 3 ``roofline/host_fold/*`` keys: one unweighted
+    :class:`~repro_torch.core.agg_engine.LazyAverage` of
+    :func:`roofline_inputs` through the CPU evaluator on a pool of each
+    :data:`FOLD_WORKER_GRID` width (the split threshold dropped, so every
+    width splits), whether every width gives the same bits, and the
+    result's hash. The evaluator is the host's, whatever the session
+    device."""
+    inputs = [torch.from_numpy(x) for x in roofline_inputs()]
+    outs = []
+    for workers in FOLD_WORKER_GRID:
+        pool = ParallelFoldPool(workers, min_parallel_elems=1)
+        node = agg_engine.LazyAverage(inputs, None)
+        try:
+            agg_engine._evaluate_nodes([node], pool=pool)
+        finally:
+            pool.close()
+        outs.append(node.out.numpy())
+    return {
+        "roofline/host_fold/workers_grid":
+            ",".join(str(w) for w in FOLD_WORKER_GRID),
+        "roofline/host_fold/bit_identical":
+            all(np.array_equal(o, outs[0]) for o in outs[1:]),
+        "roofline/host_fold/avg_hash": avg_hash(outs[0]),
+    }
+
+
 def all_invariants(device: str = "cuda") -> dict:
-    """Every group of :data:`GROUPS` on ``device``: 363 keys."""
+    """Every group of :data:`GROUPS` on ``device``: 366 keys."""
     out = main_path_invariants(device)
     out.update(codec_invariants(device, raw_hashes=gradssharding_hashes(out)))
     out.update(sharded_tree_invariants(
@@ -383,6 +428,7 @@ def all_invariants(device: str = "cuda") -> dict:
     out.update(robust_invariants(device))
     out.update(geo_invariants(device))
     out.update(population_invariants(device))
+    out.update(roofline_invariants())
     return out
 
 
@@ -439,11 +485,13 @@ def expected_invariants(path: str | pathlib.Path = EXPECTED_PATH,
                         groups=TOPOLOGIES) -> dict:
     """The committed keys under ``smoke/<group>`` for each of ``groups``
     (default: the three builtin topologies; ``("codec",)`` for the codec
-    gate; :data:`GROUPS` for every group this module reproduces)."""
+    gate; ``("roofline",)`` for ``roofline/host_fold``; :data:`GROUPS` for
+    every group this module reproduces)."""
     with open(path) as fh:
         pinned = json.load(fh)
-    return {k: v for k, v in pinned.items()
-            if k.split("/")[:2] in [["smoke", g] for g in groups]}
+    prefixes = [["roofline", "host_fold"] if g == "roofline" else ["smoke", g]
+                for g in groups]
+    return {k: v for k, v in pinned.items() if k.split("/")[:2] in prefixes}
 
 
 def mismatches(got: dict, expected: dict) -> list[str]:

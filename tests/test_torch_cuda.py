@@ -199,13 +199,19 @@ def test_codec_round_on_card_equals_cpu(topology, codec):
     assert on_card.codec_error == on_cpu.codec_error
 
 
-SGD_CASES = ["f32", "bf16_p", "bf16_g", "bf16_both", "ragged", "misaligned"]
+SGD_CASES = ["f32", "bf16_p", "bf16_g", "bf16_both", "ragged", "misaligned",
+             "mixed_offsets", "mixed_offsets_bf16_g", "bf16_p_head",
+             "len1", "len3", "len5", "len5_offset"]
+# (p, g, v) element offsets of the mixed cases, from a 16-byte aligned start
+SGD_OFFSETS = {"mixed_offsets": (1, 2, 3), "mixed_offsets_bf16_g": (0, 1, 0),
+               "bf16_p_head": (2, 2, 2), "len5_offset": (1, 1, 1)}
 
 
 def _sgd_inputs(case):
     g = torch.Generator(device="cuda").manual_seed(13)
     rnd = lambda n: torch.randn(n, generator=g, device="cuda")
-    n = 1_000_003 if case == "ragged" else 65_536
+    n = {"ragged": 1_000_003, "len1": 1, "len3": 3, "len5": 5,
+         "len5_offset": 5, "bf16_p_head": 100_005}.get(case, 65_536)
     p, grad, v = rnd(n), rnd(n), rnd(n)
     if case in ("bf16_p", "bf16_both"):
         p = p.bfloat16()
@@ -214,6 +220,16 @@ def _sgd_inputs(case):
     if case == "misaligned":
         p, grad, v = (t[1:] for t in (rnd(n + 1), rnd(n + 1), rnd(n + 1)))
         assert p.data_ptr() % 16 != 0
+    if case in SGD_OFFSETS:
+        # p, g and v start at different offsets modulo 16 bytes (or, for
+        # bf16_p_head and len5_offset, at offsets one head aligns)
+        op, og, ov = SGD_OFFSETS[case]
+        p, grad, v = (rnd(n + k)[k:] for k in (op, og, ov))
+        if case == "bf16_p_head":
+            p = rnd(n + op).bfloat16()[op:]
+        if case == "mixed_offsets_bf16_g":
+            grad = rnd(n + og).bfloat16()[og:]
+        assert {t.data_ptr() % 16 for t in (p, grad, v)} != {0}
     return p, grad, v
 
 
@@ -459,6 +475,140 @@ def test_carry_form_bit_equal_plain_on_card(case):
     for a, b in zip(got, want):
         assert a.dtype == torch.float32
         assert torch.equal(_bits(a), _bits(b))
+
+
+# the carry route: one node over the rows of one 2-D tensor, by value
+CARRY_ROUTE_CASES = ["f32_chunks", "one_row_chunk", "ragged_last",
+                     "weighted_chunks", "L4097", "L4100_tma", "L33333",
+                     "L_below_tile_tma", "L_below_tile", "single_row",
+                     "misaligned_base", "column_slice", "column_slice_tma",
+                     "bf16_tma", "bf16_odd_offset", "bf16_odd_stride",
+                     "nonfinite"]
+CARRY_ROUTE_FORMS = ["sum_f32", "ones_f64", "weighted_f64", "weighted_f32"]
+
+
+def _carry_route_case(case):
+    """(the chunks of one node, each a 2-D tensor; whether the route fills
+    its ring by TMA) of one carry-route case."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    rows = lambda n, length=4096: torch.randn(n, length, generator=g,
+                                              device="cuda")
+    flat = lambda n: torch.randn(n, generator=g, device="cuda")
+    if case in ("f32_chunks", "weighted_chunks"):
+        return [rows(512), rows(512), rows(77)], True
+    if case == "one_row_chunk":
+        return [rows(1), rows(1), rows(1)], True
+    if case == "ragged_last":
+        return [rows(512, 33_333), rows(5, 33_333)], False
+    if case == "L4097":
+        return [rows(512, 4_097), rows(100, 4_097)], False
+    if case == "L4100_tma":
+        return [rows(512, 4_100), rows(33, 4_100)], True
+    if case == "L33333":
+        return [rows(64, 33_333)], False
+    if case == "L_below_tile_tma":
+        return [rows(64, 20), rows(3, 20)], True
+    if case == "L_below_tile":
+        return [rows(64, 5), rows(3, 5)], False
+    if case == "single_row":
+        return [rows(1)], True
+    if case == "misaligned_base":
+        # 4 bytes off 16-byte alignment: the cp.async fill
+        return [flat(600 * 4096 + 8)[k:k + 300 * 4096].view(300, 4096)
+                for k in (1, 3)], False
+    if case == "column_slice":
+        # rows 5,000 elements apart, 28 bytes off alignment
+        return [rows(300, 5_000)[:, 7:7 + 4096], rows(9, 5_000)[:, 7:7 + 4096]], \
+            False
+    if case == "column_slice_tma":
+        return [rows(300, 5_000)[:, 8:8 + 4096], rows(9, 5_000)[:, 8:8 + 4096]], \
+            True
+    if case == "bf16_tma":
+        return [rows(512).bfloat16(), rows(40).bfloat16()], True
+    if case == "bf16_odd_offset":
+        # 2 bytes off 4-byte alignment: every row at an odd offset
+        return [flat(300 * 4096 + 8).bfloat16()[k:k + 300 * 4096]
+                .view(300, 4096) for k in (1, 5)], False
+    if case == "bf16_odd_stride":
+        # rows 4,097 bf16 apart: the rows' offsets alternate
+        return [rows(300, 4_097).bfloat16(), rows(7, 4_097).bfloat16()], False
+    x = rows(512)
+    x[3, 5] = float("nan")
+    x[7, 6] = float("inf")
+    x[8, 6] = float("-inf")
+    x[9, 7] = float("inf")
+    x[10:20, 8] = 3e38                       # overflows f32 to inf
+    x[11, 9] = -0.0
+    return [x, rows(30)], True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", CARRY_ROUTE_FORMS)
+@pytest.mark.parametrize("case", CARRY_ROUTE_CASES)
+def test_carry_route_bit_equal_plain_on_card(case, form):
+    """The carry route, chunk by chunk with the raw accumulator carried and
+    the last chunk dividing, against its plain version bit for bit: f32
+    and f64 accumulators, unweighted, all-ones and weighted, TMA and
+    cp.async fills, ragged and short rows, strided, misaligned and bf16
+    stacks, non-finite values. One launch a chunk."""
+    _need_card()
+    chunks, tma = _carry_route_case(case)
+    weighted = form != "sum_f32"
+    acc = "f32" if form == "weighted_f32" else "f64"
+
+    def weights(x):
+        n = int(x.shape[0])
+        if not weighted:
+            return None
+        return [1.0] * n if form == "ones_f64" else \
+            [0.5 + 0.25 * (i % 7) for i in range(n)]
+    total = sum(int(x.shape[0]) for x in chunks)
+    div = float(total) if form in ("sum_f32", "ones_f64") else 3.5 * total
+    got_c = want_c = None
+    for i, x in enumerate(chunks):
+        fin = i == len(chunks) - 1
+        w = weights(x)
+        args = fs._carry_args(x, w, got_c, div if fin else None, acc, fin,
+                              x.device)[0]
+        assert args[5] == int(tma)
+        before = fs.LAUNCHES
+        got = fs.fold_nodes([(x, w)], acc, carry=[got_c], finalize=fin,
+                            divisors=[div] if fin else None)[0]
+        torch.cuda.synchronize()
+        assert fs.LAUNCHES == before + 1
+        want = fs.fedavg_stream_plain(x, w, acc, carry=want_c, finalize=fin,
+                                      divisor=div if fin else None)
+        assert got.dtype == want.dtype
+        assert torch.equal(_bits(got), _bits(want)), f"chunk {i}"
+        got_c, want_c = got, want
+
+
+@pytest.mark.cuda
+def test_carry_route_raises_on_what_it_cannot_take_on_card():
+    """A stack on another device than its carry, or rows that are not
+    contiguous, raise; an empty row length launches nothing."""
+    _need_card()
+    x = torch.randn(8, 64, device="cuda")
+    with pytest.raises(ValueError, match="carry"):
+        fs.fold_nodes([(x, None)], carry=[torch.zeros(64)], finalize=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fold_nodes([(x[:, ::2], None)])
+    before = fs.LAUNCHES
+    out = fs.fold_nodes([(torch.empty(8, 0, device="cuda"), None)])[0]
+    assert out.shape == (0,) and fs.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_roofline_inputs_hash_on_card():
+    """The host fold sweep's six inputs folded on the card, by the table
+    kernel (a list) and by the carry route (one 2-D stack), hash to the
+    pinned `roofline/host_fold/avg_hash`."""
+    _need_card()
+    xs = [torch.from_numpy(x).cuda() for x in smoke.roofline_inputs()]
+    want = smoke.expected_invariants(groups=("roofline",))[
+        "roofline/host_fold/avg_hash"]
+    for node in ((xs, None), (torch.stack(xs), None)):
+        assert smoke.avg_hash(fs.fold_nodes([node])[0]) == want
 
 
 @pytest.mark.cuda

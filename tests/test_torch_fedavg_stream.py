@@ -213,3 +213,160 @@ def test_fold_nodes_rejects_foreign_devices():
         fs.fold_nodes([([x], None)])
     with pytest.raises(ValueError, match="acc"):
         fs.fold_nodes([([torch.zeros(4)], None)], acc="f16")
+
+
+# ---------------------------------------------------------------------------
+# the carry route: one node over the rows of a 2-D tensor, arguments by value
+# ---------------------------------------------------------------------------
+
+CARRY_FORMS = {                # weights of a chunk of n rows, acc
+    "sum_f32": (lambda n: None, "f64"),
+    "ones_f64": (lambda n: [1.0] * n, "f64"),
+    "weighted_f64": (lambda n: [0.5 + 0.25 * (i % 7) for i in range(n)],
+                     "f64"),
+    "weighted_f32": (lambda n: [0.5 + 0.25 * (i % 7) for i in range(n)],
+                     "f32"),
+}
+CARRY_LAYOUTS = ("contiguous", "offset_view", "column_slice")
+CARRY_SHAPES = ((9, 4097), (1, 33), (40, 5), (6, 4096))
+
+
+def _carry_stack(n, length, dtype, layout, seed=0):
+    """(the 2-D stack, the 1-D tensor that owns its memory)."""
+    rng = np.random.default_rng([seed, n, length])
+    mk = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    if layout == "contiguous":
+        root = mk(n * length)
+        return root.view(n, length), root
+    if layout == "offset_view":
+        root = mk(n * length + 3)
+        return root[1:1 + n * length].view(n, length), root
+    root = mk(n * (length + 11))
+    return root.view(n, length + 11)[:, 3:3 + length], root
+
+
+def _rows_from_args(args, root):
+    """The rows the kernel reads: from the owning tensor's bytes at the
+    base pointer, one row a stride apart, widened to f32."""
+    base, stride, n, length, bf16 = args[:5]
+    raw = root.view(torch.int16 if bf16 else torch.int32).numpy() \
+        .view(np.uint8)
+    off = base - root.data_ptr()
+    es = 2 if bf16 else 4
+    rows = []
+    for i in range(n):
+        b = raw[off + i * stride:off + i * stride + length * es]
+        rows.append((b.view(np.uint16).astype(np.uint32) << 16)
+                    .view(np.float32) if bf16 else b.view(np.float32))
+    return rows
+
+
+def _decode_carry(args, w, root, carry):
+    """Evaluate one carry-route launch in numpy, as the kernel reads its
+    arguments; returns the output and its dtype."""
+    _base, _stride, n, length, _bf16, _tma, carry_ptr, _out, mode, div, \
+        fin = args
+    xs = _rows_from_args(args, root)
+    wide = mode in (1, 3)
+    if carry_ptr:
+        assert carry_ptr == carry.data_ptr()
+        acc = carry.numpy().copy()
+        rest, ws = xs, (w if w is not None else [1.0] * n)
+    else:
+        x0, w0 = xs[0], (1.0 if w is None else w[0])
+        acc = x0.astype(np.float64) * w0 if wide and w0 != 1.0 else \
+            x0.astype(np.float64) if wide else \
+            x0 * np.float32(w0) if mode == 2 else x0.copy()
+        rest, ws = xs[1:], ([1.0] * (n - 1) if w is None else w[1:])
+    for x, wi in zip(rest, ws):
+        if wide:
+            acc = acc + (x.astype(np.float64) if wi == 1.0
+                         else x.astype(np.float64) * wi)
+        else:
+            acc = acc + (x * np.float32(wi) if mode == 2 else x)
+    if not fin:
+        return acc
+    return (acc / div).astype(np.float32) if wide else acc / np.float32(div)
+
+
+def test_carry_route_takes_one_node_of_a_2d_tensor():
+    """Which calls take the carry route: one node whose inputs are one 2-D
+    tensor; several nodes and lists of 1-D inputs keep the table."""
+    x = torch.zeros(4, 8)
+    assert fs._carry_route([(x, None)])
+    assert fs._carry_route([(x, [1.0] * 4)])
+    assert not fs._carry_route([(list(x), None)])
+    assert not fs._carry_route([(x, None), (x, None)])
+    assert not fs._carry_route([(list(x), None), (x, None)])
+
+
+@pytest.mark.parametrize("layout", CARRY_LAYOUTS)
+@pytest.mark.parametrize("form", sorted(CARRY_FORMS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_carry_args_encode_the_fold(dtype, form, layout):
+    """The carry route's by-value arguments, decoded in numpy from the
+    stack's own bytes, give the plain version's bits: a fresh chunk, a
+    carried one and a last one that divides, at ragged lengths, below one
+    32-column tile and on one row. The route reads weights only where one
+    is not exactly 1.0, and asks for TMA only on 16-byte aligned rows."""
+    tdtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+    make_w, acc = CARRY_FORMS[form]
+    for n, length in CARRY_SHAPES:
+        stack, root = _carry_stack(n, length, tdtype, layout)
+        weights = make_w(n)
+        carry = fs.fedavg_stream_plain(stack, weights, acc, finalize=False)
+        for c, fin, div in ((None, True, None), (carry, False, None),
+                            (carry, True, 3.0 * n)):
+            args, out, w = fs._carry_args(stack, weights, c, div, acc, fin,
+                                          torch.device("cpu"))
+            base, stride, rows, cols, bf16, tma, carry_ptr, out_ptr, mode, \
+                divisor, finalize = args
+            assert (rows, cols, bf16) == (n, length, int(dtype == "bf16"))
+            assert stride == stack.stride(0) * stack.element_size()
+            assert base == stack.data_ptr() and out_ptr == out.data_ptr()
+            assert tma == int(base % 16 == 0 and stride % 16 == 0)
+            if layout != "contiguous":
+                assert not tma
+            assert finalize == int(fin) and carry_ptr == (
+                0 if c is None else c.data_ptr())
+            assert mode == {"sum_f32": 0, "ones_f64": 3, "weighted_f64": 1,
+                            "weighted_f32": 2}[form]
+            assert (w is None) == (form in ("sum_f32", "ones_f64"))
+            want = fs.fedavg_stream_plain(stack, weights, acc, carry=c,
+                                          finalize=fin, divisor=div)
+            assert out.dtype == want.dtype and out.shape == (length,)
+            got = _decode_carry(args, w, root, c)
+            assert got.dtype == want.numpy().dtype
+            np.testing.assert_array_equal(got.view(np.uint8),
+                                          want.numpy().view(np.uint8))
+            assert divisor == (fs._divisor(n, weights, acc) if div is None
+                               else div)
+
+
+def test_carry_route_asks_for_tma_on_aligned_rows():
+    """TMA needs a 16-byte aligned base and row stride; every other stack
+    takes the cp.async fill."""
+    cpu = torch.device("cpu")
+    tma = lambda x: fs._carry_args(x, None, None, None, "f64", True,
+                                   cpu)[0][5]
+    wide = torch.zeros(8, 4100)
+    assert tma(wide) == 1                     # ragged 4,100 columns, TMA
+    assert tma(wide[:, 4:4 + 64]) == 1        # 16 bytes in, stride 16,400
+    assert tma(wide[:, 1:4097]) == 0          # 4 bytes in
+    assert tma(torch.zeros(8, 4097)) == 0     # stride 16,388
+    assert tma(torch.zeros(8, 4096).bfloat16()) == 1
+    assert tma(torch.zeros(8, 4097).bfloat16()) == 0
+
+
+@pytest.mark.parametrize("as_stack", [False, True])
+def test_roofline_inputs_fold_to_the_pinned_hash(as_stack):
+    """The host fold sweep's six inputs, as a list (the table kernel's
+    call) or as one 2-D stack (the carry route's), fold to the pinned
+    `roofline/host_fold/avg_hash` by the unweighted contract."""
+    from repro_torch import smoke
+    xs = [torch.from_numpy(x) for x in smoke.roofline_inputs()]
+    node = (torch.stack(xs) if as_stack else xs, None)
+    want = smoke.expected_invariants(groups=("roofline",))[
+        "roofline/host_fold/avg_hash"]
+    assert smoke.avg_hash(fs.fold_nodes([node])[0]) == want

@@ -163,11 +163,33 @@ def test_three_builtin_topologies():
 
 
 def test_all_pinned_smoke_keys_on_cpu():
-    """Every group the port reproduces: 363 of the file's 366 keys (the
-    3 `roofline/host_fold` keys belong to the unported multi-device
-    engine)."""
+    """Every group the port reproduces: all 366 keys of the file, the 3
+    `roofline/host_fold` keys of the host fold's worker sweep included."""
     expected = smoke.expected_invariants(groups=smoke.GROUPS)
-    assert len(expected) == 363
+    assert len(expected) == 366
     got = smoke.all_invariants("cpu")
     assert set(got) == set(expected)
     assert smoke.mismatches(got, expected) == []
+
+
+def test_roofline_group_matches_reference_host_fold():
+    """The `roofline` group's computation, run through the reference's own
+    evaluator (`repro.core.agg_engine._evaluate_nodes` on its
+    `ParallelFoldPool`) on the same numpy inputs, gives the same bits at
+    every worker count, and the port's keys carry its hash."""
+    from repro.core import agg_engine as ref_engine
+    from repro.core.fold_pool import CHUNK_ELEMS as REF_CHUNK, \
+        ParallelFoldPool as RefPool
+    inputs = smoke.roofline_inputs()
+    assert len(inputs) == 6 and inputs[0].shape == (4 * REF_CHUNK,)
+    got = smoke.roofline_invariants()
+    assert got["roofline/host_fold/workers_grid"] == "1,2,4,8"
+    for workers in smoke.FOLD_WORKER_GRID:
+        pool = RefPool(workers, min_parallel_elems=1)
+        node = ref_engine.LazyAverage(inputs, None)
+        try:
+            ref_engine._evaluate_nodes([node], pool=pool)
+        finally:
+            pool.close()
+        assert smoke.avg_hash(node.out) == got["roofline/host_fold/avg_hash"]
+    assert got["roofline/host_fold/bit_identical"] is True
