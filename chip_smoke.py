@@ -99,7 +99,25 @@ Phases, each fatal on failure:
    the wrapper's host time a call;
 11. one population round under ``qsgd8`` (N = 64, GradsSharding and
    ``geo_tiered``): the codec kernels run through the population's decode
-   and the round equals the eager round over the materialized cohort.
+   and the round equals the eager round over the materialized cohort;
+12. serving: (1) the rmsnorm kernel against its plain version (one bf16
+   ulp) at every dense arch's decode rows, (4, 2048), (4, 2560), (4, 1280)
+   and (4, 5120) bf16 with f32 gamma and qwen3's q-norm rows (256, 128),
+   each by device time beside its bound, and the wrapper's host time a
+   call at (4, 2048) beside ``F.rms_norm``'s; (2) full-width
+   ``tinyllama-1.1b`` at f32 compute and f32 cache: 12 teacher-forced
+   decode steps at batch 2 against ``forward`` (rtol = atol = 5e-3), 45
+   rmsnorm launches a step; (3) ``serve_loop`` at full width with the
+   reference's defaults (batch 4, prompt 8, 16 new tokens, ``max_len``
+   64, bf16): 45 rmsnorm launches a step, tokens/s, peak device memory,
+   the same tokens from a second loop, the median host wall of a decode
+   step, one step under ``torch.profiler`` (device busy, idle share,
+   kernels, the rmsnorm kernels' share) and the step's bytes bound; (4)
+   the five dense archs at smoke width: decode against ``forward``
+   (5e-3; h2o-danube's ring of 8 slots wraps over 14 steps), grouped
+   against expanded decode (2e-5), qk-norm's launches. qwen2.5-14b and
+   qwen3-32b do not fit this card at full width with f32 parameters (59
+   and 131 GB) beside the earlier phases.
 
 The last lines are a JSON object of timings and walls, a JSON ``kernels``
 line, and ``{"ok": true, "device": {...}}``.
@@ -1192,6 +1210,20 @@ def phase_lm_timings(sgd, rn, layers, cfg, params, grads, peak):
     return rows
 
 
+def device_busy_ms(kernels) -> float:
+    """The union of the kernels' device spans, in ms: the time the device
+    was busy (kernels that overlap count once)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return (busy_us + cur_e - cur_s) / 1e3
+
+
 def phase_lm_profile(models, data, cfg, params):
     """One full-width local step (forward, backward, fused-SGD on every
     leaf) under ``torch.profiler``: device time by kernel name and the
@@ -1221,19 +1253,9 @@ def phase_lm_profile(models, data, cfg, params):
         print("    profile: no device activity recorded; not measured")
         return None
     by_name = collections.Counter()
-    spans = []
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
-        spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-    busy_us, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_ms = (busy_us + cur_e - cur_s) / 1e3
+    busy_ms = device_busy_ms(kernels)
     top = [[name[:90], ms] for name, ms in by_name.most_common(10)]
     # the port's kernels by their device time alone; the CUDA-event
     # timings of phase 7 (c) also hold the wrapper's host work whenever
@@ -1718,6 +1740,326 @@ def phase_carry_timing(fs, build, peak):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: serving (KV-cache decode)
+# ---------------------------------------------------------------------------
+
+# the reference serve_loop's defaults
+SERVE = dict(batch=4, prompt_len=8, max_new_tokens=16, max_len=64)
+SERVE_STEPS = SERVE["prompt_len"] + SERVE["max_new_tokens"] - 1
+SERVE_TIMED_STEPS = 20           # timed decode steps, after 3 warm-up steps
+DECODE_CHECK_STEPS = 12          # teacher-forced steps held against forward
+# the rows each dense arch's norms get at batch 4: (batch, d_model), and
+# qwen3's q-norm (batch · heads, head_dim)
+DECODE_ROWS = {"tinyllama-1.1b": (4, 2048), "h2o-danube-1.8b": (4, 2560),
+               "gpt2-large": (4, 1280), "qwen2.5-14b / qwen3-32b": (4, 5120),
+               "qwen3-32b q-norm": (256, 128)}
+
+
+def phase_serve_kernels(rn, peak):
+    """12 (1): the rmsnorm kernel against its plain version at every dense
+    arch's decode rows (bf16 rows, f32 gamma; one bf16 ulp), by device time
+    a call beside its bound; at (4, 2048) also F.rms_norm's device time and
+    both wrappers' host time a call."""
+    import torch
+    bw, f32, _ = peak
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rows, max_err = {}, 0.0
+    for label, (r, d) in DECODE_ROWS.items():
+        x = torch.randn(r, d, generator=gen, device="cuda").bfloat16()
+        gamma = torch.randn(d, generator=gen, device="cuda")
+        out, rstd = rn.rmsnorm(x, gamma)
+        want, want_rstd = rn.rmsnorm_plain(x, gamma)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((out.float() - want.float()).abs().max()))
+        if out.dtype != x.dtype or out.shape != x.shape \
+                or bf16_ulps(out, want) > 1 or not bool(
+                    ((rstd - want_rstd).abs() <= 1e-5 * want_rstd.abs()).all()):
+            fail(f"rmsnorm != plain beyond one bf16 ulp at the decode rows "
+                 f"({r}, {d}) of {label} (max abs err {max_err})")
+        nbytes = 2 * r * d * 2 + d * 4 + 4 * r      # x, out, gamma, rstd
+        t_bytes, t_ops = nbytes / bw, 4 * r * d / f32
+        kernel = lambda: rn.rmsnorm(x, gamma)
+        got = device_ms(kernel, "rmsnorm_kernel")
+        row = {"shape": [r, d], "bytes": nbytes,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "device_ms": got[0] if got else None,
+               "ms": time_ms(kernel),
+               "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, gamma))}
+        if (r, d) == DECODE_ROWS["tinyllama-1.1b"]:
+            g16 = gamma.bfloat16()
+            library = lambda: torch.nn.functional.rms_norm(x, (d,),
+                                                           weight=g16)
+            lib = device_ms(library)
+            row.update({"library_ms": time_ms(library),
+                        "library_device_ms": lib[0] if lib else None,
+                        "host_us": host_us(kernel),
+                        "library_host_us": host_us(library)})
+        rows[f"{r}x{d}"] = row
+        dev = "not measured" if row["device_ms"] is None else \
+            f"{row['device_ms'] * 1e3:.3f} us " \
+            f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound)"
+        print(f"[12] rmsnorm at ({r}, {d}) bf16 ({label}): within one bf16 "
+              f"ulp of plain; device {dev}, bound {row['bound_ms'] * 1e3:.3f} "
+              f"us ({row['bound_by']})")
+    row = rows["4x2048"]
+    lib_dev = "not measured" if row["library_device_ms"] is None else \
+        f"{row['library_device_ms'] * 1e3:.3f} us"
+    print(f"     at (4, 2048): host time a call, wrapper {row['host_us']:.2f} "
+          f"us, F.rms_norm {row['library_host_us']:.2f} us; F.rms_norm "
+          f"device {lib_dev}")
+    return rows, max_err
+
+
+def _decode_against_forward(models, rn, cfg, batch, steps, seed, tol):
+    """Teacher-forced decode of ``steps`` tokens on the card against the
+    full forward (f32 compute, f32 cache), at rtol = atol = ``tol``; the
+    rmsnorm launches of each step and the largest error."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = models.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab, (batch, steps), generator=gen,
+                         device="cuda")
+    with torch.inference_mode():
+        full = models.forward(params, cfg, {"tokens": toks})
+        cache = models.init_cache(cfg, batch, steps, dtype=torch.float32,
+                                  device="cuda")
+        outs, per_step = [], []
+        for i in range(steps):
+            before = rn.LAUNCHES
+            lg, cache = models.decode_step(params, cfg, toks[:, i:i + 1],
+                                           cache)
+            per_step.append(rn.LAUNCHES - before)
+            outs.append(lg[:, 0])
+        stepped = torch.stack(outs, dim=1)
+    torch.cuda.synchronize()
+    err = (stepped - full).abs()
+    if not bool(torch.isfinite(stepped).all()) or \
+            not bool((err <= tol + tol * full.abs()).all()):
+        fail(f"{cfg.name}: decode != forward beyond rtol = atol = {tol} "
+             f"(max abs err {float(err.max())})")
+    return params, cache, per_step, float(err.max())
+
+
+def phase_serve_f32(models, rn, cfg):
+    """12 (2): full-width decode at f32 against forward, 45 norms a step."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("f32 matmuls would run in TF32")
+    t0 = time.perf_counter()
+    params, cache, per_step, err = _decode_against_forward(
+        models, rn, cfg, 2, DECODE_CHECK_STEPS, SEED + 13, 5e-3)
+    norms = 2 * cfg.n_layers + 1
+    if per_step != [norms] * DECODE_CHECK_STEPS or norms != NORMS_PER_FORWARD:
+        fail(f"rmsnorm launches a decode step {per_step}, expected "
+             f"{NORMS_PER_FORWARD}")
+    if int(cache["idx"]) != DECODE_CHECK_STEPS:
+        fail(f"the cache's idx is {int(cache['idx'])}")
+    print(f"[12] full-width {cfg.name} at f32: {DECODE_CHECK_STEPS} decode "
+          f"steps at batch 2 == forward within rtol = atol = 5e-3 (max abs "
+          f"err {err:.3g}); {norms} rmsnorm launches a step; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": err, "rmsnorm_per_step": norms}
+
+
+def _step_bytes(params, cfg, idx: int) -> int:
+    """Bytes one decode step must move at batch B: every weight once in
+    its serving type (the embedding: B rows), the valid K/V slots read and
+    this token's written, the logits written."""
+    b, kv = SERVE["batch"], cfg.n_kv_heads * cfg.resolved_head_dim
+    weights = sum(t.numel() * t.element_size() for name, t in params.items()
+                  if name != "embed")
+    embed = b * cfg.d_model * params["embed"].element_size()
+    kv_bytes = 2 * cfg.n_layers * b * kv * 2 * (idx + 1 + 1)
+    return weights + embed + kv_bytes + b * cfg.vocab * 2
+
+
+def phase_serve_loop(serve, models, rn, cfg, peak):
+    """12 (3): serve_loop at full width with the reference's defaults, then
+    decode steps timed by the host clock, one step under the profiler, and
+    the step's bytes bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models import transformer
+    bw = peak[0]
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 14), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rn.LAUNCHES = 0                      # the serving path starts here
+    out = serve.serve_loop(cfg, params=params, seed=0, device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    launches = rn.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gen = out["generated"]
+    if launches != NORMS_PER_FORWARD * SERVE_STEPS:
+        fail(f"serve_loop launched rmsnorm {launches} times, expected "
+             f"{NORMS_PER_FORWARD} x {SERVE_STEPS}")
+    if gen.shape != (SERVE["batch"], SERVE["max_new_tokens"]) \
+            or str(gen.dtype) != "int32" \
+            or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        fail(f"serve_loop generated {gen.dtype} {gen.shape}, values "
+             f"{gen.min()}..{gen.max()}")
+    again = serve.serve_loop(cfg, params=params, seed=0, device="cuda",
+                             **SERVE)
+    if not (again["generated"] == gen).all():
+        fail("two greedy serve loops on the same weights and prompts "
+             "generated different tokens")
+    shape = ShapeConfig("serve", seq_len=SERVE["max_len"],
+                        global_batch=SERVE["batch"], kind="decode")
+    with torch.inference_mode():
+        sp = serve.cast_for_serving(params, cfg)
+        del params
+        cache = models.init_cache(cfg, SERVE["batch"], SERVE["max_len"],
+                                  device="cuda")
+        step = serve.make_serve_step(cfg, shape, cache_like=cache)
+        tok = torch.from_numpy(gen[:, :1].copy()).to("cuda")
+        walls = []
+        for i in range(3 + SERVE_TIMED_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = step(sp, tok, cache)
+            torch.cuda.synchronize()
+            if i >= 3:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(logits).all()):
+            fail("a decode step's logits are not finite")
+        unstack_us = host_us(lambda: transformer._unstack(sp, cfg.n_layers),
+                             calls=50)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        # one step to warm the profiler up, then the step it keeps
+        kept = {}
+
+        def ready(p):
+            kept["events"], kept["ops"] = list(p.events()), p.key_averages()
+        with torch.profiler.profile(
+                activities=acts, on_trace_ready=ready,
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1)) as prof:
+            step(sp, tok, cache)
+            torch.cuda.synchronize()
+            prof.step()
+            idx = int(cache["idx"])
+            t0 = time.perf_counter()
+            step(sp, tok, cache)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    nbytes = _step_bytes(sp, cfg, idx)
+    bound_ms = nbytes / bw * 1e3
+    step_ms = statistics.median(walls)
+    kernels = [e for e in kept.get("events", ())
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    prof_out = None
+    if kernels:
+        busy = device_busy_ms(kernels)
+        norm_ms = sum(e.time_range.elapsed_us() for e in kernels
+                      if "rmsnorm_kernel" in e.name) / 1e3
+        kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        prof_out = {"step_wall_ms": prof_wall_ms, "device_busy_ms": busy,
+                    "idle_share": 1.0 - busy / prof_wall_ms,
+                    "kernels": len(kernels), "kernel_sum_ms": kernel_ms,
+                    "rmsnorm_launches": sum(1 for e in kernels
+                                            if "rmsnorm_kernel" in e.name),
+                    "rmsnorm_device_ms": norm_ms,
+                    "rmsnorm_share_of_kernel_time": norm_ms / kernel_ms,
+                    "bound_share_of_busy": bound_ms / busy,
+                    # where the host's time goes: operators by self time
+                    "host_top": [[e.key[:60], e.self_cpu_time_total / 1e3,
+                                  e.count] for e in sorted(
+                        kept["ops"],
+                        key=lambda e: -e.self_cpu_time_total)[:12]]}
+    res = {"generated_shape": list(gen.shape), "tokens_per_s":
+           out["tokens_per_s"], "loop_wall_s": out["wall_s"],
+           "launches": launches, "peak_memory_gb": peak_gb,
+           "step_walls_ms": walls, "step_median_ms": step_ms,
+           "step_bytes": nbytes, "step_bound_ms": bound_ms,
+           "unstack_host_us": unstack_us,
+           "bound_share_of_step": bound_ms / step_ms, "profile": prof_out}
+    print(f"[12] serve_loop {cfg.name} (batch {SERVE['batch']}, prompt "
+          f"{SERVE['prompt_len']}, {SERVE['max_new_tokens']} new tokens, "
+          f"max_len {SERVE['max_len']}, bf16): {out['tokens_per_s']:.1f} "
+          f"tokens/s ({out['wall_s']:.3f} s for {SERVE_STEPS} steps), "
+          f"{launches} rmsnorm launches ({NORMS_PER_FORWARD} a step), peak "
+          f"device memory {peak_gb:.2f} GB; the same tokens again")
+    print(f"     a decode step: median host wall {step_ms:.3f} ms over "
+          f"{SERVE_TIMED_STEPS}; bytes bound {bound_ms:.4f} ms ({nbytes} "
+          f"bytes), {100 * bound_ms / step_ms:.1f}% of the step; the layer "
+          f"views (_unstack) {unstack_us:.1f} us of host time a step")
+    if prof_out is None:
+        print("     profile: no device activity recorded; not measured")
+    else:
+        print(f"     one step under the profiler: {prof_wall_ms:.3f} ms host "
+              f"wall, device busy {prof_out['device_busy_ms']:.3f} ms "
+              f"({100 * prof_out['idle_share']:.1f}% idle), "
+              f"{prof_out['kernels']} kernels, rmsnorm "
+              f"{prof_out['rmsnorm_launches']} launches "
+              f"{prof_out['rmsnorm_device_ms'] * 1e3:.1f} us "
+              f"({100 * prof_out['rmsnorm_share_of_kernel_time']:.1f}% of "
+              f"kernel time); bound {100 * prof_out['bound_share_of_busy']:.1f}"
+              f"% of device busy")
+        for name, ms, count in prof_out["host_top"]:
+            print(f"       host {ms:8.3f} ms  {count:5d} x {name}")
+    return res
+
+
+def phase_serve_archs(models, rn, get_arch):
+    """12 (4): every dense arch at smoke width on the card: decode against
+    forward (5e-3, the SWA ring wrapping for h2o-danube), grouped against
+    expanded decode (2e-5), qk-norm's launches."""
+    import torch
+    out = {}
+    for arch in ("tinyllama-1.1b", "h2o-danube-1.8b", "gpt2-large",
+                 "qwen2.5-14b", "qwen3-32b"):
+        cfg = dataclasses.replace(get_arch(arch).smoke,
+                                  compute_dtype=torch.float32)
+        steps = 14 if cfg.sliding_window else 12
+        params, cache, per_step, err = _decode_against_forward(
+            models, rn, cfg, 2, steps, SEED + 15, 5e-3)
+        norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm
+                                        else 0)
+        if per_step != [norms] * steps:
+            fail(f"{arch}: rmsnorm launches a step {per_step}, expected "
+                 f"{norms}")
+        width = cfg.sliding_window or steps
+        if cache["k"].shape[2] != width:
+            fail(f"{arch}: the cache holds {cache['k'].shape[2]} slots, "
+                 f"expected {width}")
+        row = {"steps": steps, "max_abs_err": err, "norms_per_step": norms}
+        if cfg.n_kv_heads < cfg.n_heads:
+            grouped = dataclasses.replace(cfg, decode_grouped_attn=True)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+            toks = torch.randint(0, cfg.vocab, (2, 10), generator=gen,
+                                 device="cuda")
+            c1 = models.init_cache(cfg, 2, 10, torch.float32, "cuda")
+            c2 = models.init_cache(grouped, 2, 10, torch.float32, "cuda")
+            g_err = 0.0
+            with torch.inference_mode():
+                for i in range(10):
+                    l1, c1 = models.decode_step(params, cfg,
+                                                toks[:, i:i + 1], c1)
+                    l2, c2 = models.decode_step(params, grouped,
+                                                toks[:, i:i + 1], c2)
+                    diff = (l1 - l2).abs()
+                    g_err = max(g_err, float(diff.max()))
+                    if not bool((diff <= 2e-5 + 2e-5 * l1.abs()).all()):
+                        fail(f"{arch}: grouped decode != expanded decode "
+                             f"beyond 2e-5 (max abs err {g_err})")
+            row["grouped_max_abs_err"] = g_err
+        out[arch] = row
+    print("[12] smoke width on the card, decode == forward within 5e-3 "
+          "(max abs err " + ", ".join(f"{a} {r['max_abs_err']:.2g}"
+                                      for a, r in out.items())
+          + "); grouped == expanded decode within 2e-5 ("
+          + ", ".join(f"{a} {r['grouped_max_abs_err']:.2g}"
+                      for a, r in out.items() if "grouped_max_abs_err" in r)
+          + "); h2o-danube's ring of 8 slots wrapped over 14 steps")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -1736,7 +2078,7 @@ def main() -> None:
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
-    from repro_torch.launch import federated_lm
+    from repro_torch.launch import federated_lm, serve
     from repro_torch.models import layers
     from repro_torch.models import registry as models
     from repro_torch import smoke
@@ -1797,6 +2139,17 @@ def main() -> None:
     pop_codec = phase_population_codec(fs, q, FederatedSession,
                                        ClientPopulation)
     carry_rows = phase_carry_timing(fs, build, peaks(name))
+    torch.cuda.empty_cache()
+
+    # phase 12: serving
+    serve_norms, serve_norm_err = phase_serve_kernels(rn, peaks(name))
+    serve_f32 = phase_serve_f32(models, rn, dataclasses.replace(
+        get_arch(LM_ARCH).model, compute_dtype=torch.float32, remat=False))
+    torch.cuda.empty_cache()
+    serve_out = phase_serve_loop(serve, models, rn, dataclasses.replace(
+        get_arch(LM_ARCH).model, remat=False), peaks(name))
+    torch.cuda.empty_cache()
+    serve_archs = phase_serve_archs(models, rn, get_arch)
 
     head = rows[0]                       # the GradsSharding wave
     print(json.dumps({"waves": rows, "round_walls_s": walls,
@@ -1814,7 +2167,11 @@ def main() -> None:
                       "fold_launches": {"main_path": launches,
                                         "faults_and_plugins": fault_launches,
                                         "population": pop_launches},
-                      "carry": carry_rows, "card": card}))
+                      "carry": carry_rows,
+                      "serve": {"rmsnorm_decode_rows": serve_norms,
+                                "f32_decode": serve_f32, "loop": serve_out,
+                                "smoke_archs": serve_archs},
+                      "card": card}))
     kernels = [{
         "name": "fedavg_stream", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_stream.cu",
@@ -1855,9 +2212,23 @@ def main() -> None:
     kernels[-2].update({"device_ms": step["device_ms"],
                         "library_device_ms": step["library_device_ms"]})
     norm = lm_rows["rmsnorm"]
-    kernels[-1].update({"device_ms": norm["device_ms"],
-                        "library_device_ms": norm["library_device_ms"],
-                        "copy_device_ms": norm["copy_device_ms"]})
+    decode_norm = serve_norms["4x2048"]
+    kernels[-1].update({
+        "launches": lm_launches["rmsnorm"] + serve_out["launches"],
+        "max_abs_err": max(lm_errs["rmsnorm"], serve_norm_err),
+        "device_ms": norm["device_ms"],
+        "library_device_ms": norm["library_device_ms"],
+        "copy_device_ms": norm["copy_device_ms"],
+        "serve": {"launches": serve_out["launches"], "shape": [4, 2048],
+                  "device_ms": decode_norm["device_ms"],
+                  "ms": decode_norm["ms"],
+                  "plain_ms": decode_norm["plain_ms"],
+                  "bound_ms": decode_norm["bound_ms"],
+                  "bound_by": decode_norm["bound_by"],
+                  "library_ms": decode_norm["library_ms"],
+                  "library_device_ms": decode_norm["library_device_ms"],
+                  "host_us": decode_norm["host_us"],
+                  "library_host_us": decode_norm["library_host_us"]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

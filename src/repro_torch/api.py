@@ -148,7 +148,7 @@ class SessionConfig:
     # bit-identical at every worker count
     workers: int | str | None = None
     # multi-device fold engine of the reference package: not ported yet
-    # (ROADMAP queue 1, item 10); anything but None raises
+    # (ROADMAP queue 1, item 4); anything but None raises
     host_mesh: int | None = None
     topology_options: Mapping[str, Any] = field(default_factory=dict)
     # where client gradients, shards and the mean live
@@ -239,7 +239,7 @@ class FederatedSession:
         if config.host_mesh is not None:
             raise NotImplementedError(
                 "the host_mesh engine is not ported yet (ROADMAP queue 1, "
-                "item 10: device collectives and the multi-device engine)")
+                "item 4: device collectives and the multi-device engine)")
         self.device = resolve_device(config.device)      # fail fast
         self.topology = get_topology(config.topology)   # fail fast
         get_codec(config.codec)                         # fail fast too

@@ -2,14 +2,15 @@
 
 The reference package's configuration as far as the port runs it: the FL
 round settings and the AWS Lambda platform constants the cost model and
-the simulated runtime price every round with, and the model configuration
-of the federated LM trainer (``ModelConfig``, ``ArchSpec``, ``smoke_of``).
-No mesh or hardware configuration lives here yet.
+the simulated runtime price every round with, the model configuration
+(``ModelConfig``, ``ArchSpec``, ``smoke_of``) and the input-shape cells
+of the language models (``ShapeConfig``, ``LM_SHAPES``,
+``shape_applicable``). No mesh or hardware configuration lives here yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any
+from typing import Any, Mapping
 
 import torch
 
@@ -159,15 +160,55 @@ class ModelConfig:
         return self.param_count() * dtype_bytes
 
 
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+LM_SHAPES: tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train"),
+    ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill"),
+    ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode"),
+    ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode"),
+)
+
+SHAPES_BY_NAME: Mapping[str, ShapeConfig] = {s.name: s for s in LM_SHAPES}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Is this (arch, shape) cell runnable? Returns (ok, reason_if_not)."""
+    if shape.name == "long_500k" and not model.subquadratic:
+        return False, "skip: full quadratic attention at 512k context (see DESIGN.md)"
+    return True, ""
+
+
 @dataclass(frozen=True)
 class ArchSpec:
-    """A registered architecture. The reference's input-shape cells of the
-    dry-run (``shapes``, ``cells``) have no caller in the port yet."""
+    """A registered architecture and its input-shape cells."""
 
     arch_id: str
     model: ModelConfig
     smoke: ModelConfig                   # reduced same-family config for CPU tests
+    shapes: tuple[ShapeConfig, ...] = LM_SHAPES
     source: str = ""
+
+    def cells(self) -> list[tuple[ShapeConfig, bool, str]]:
+        out = []
+        for s in self.shapes:
+            ok, why = shape_applicable(self.model, s)
+            out.append((s, ok, why))
+        return out
 
 
 def smoke_of(m: ModelConfig, **over) -> ModelConfig:

@@ -1,12 +1,17 @@
-"""Deterministic synthetic language-model data.
+"""Deterministic synthetic data pipelines.
 
-``SyntheticLM`` is the reference's order-1 Markov token stream with a
-client-dependent transition bias (non-IID across federated clients), so a
-trained model beats the uniform-entropy floor. Sampling is stateless:
-(seed, client, step) -> batch, on the reference's numpy PCG64 streams, so
-every batch holds the reference's tokens byte for byte; they arrive as
-int64 tensors. ``SyntheticVision`` waits for the CNN family (ROADMAP
-queue 1, item 11).
+* ``SyntheticLM`` — the reference's order-1 Markov token stream with a
+  client-dependent transition bias (non-IID across federated clients), so
+  a trained model beats the uniform-entropy floor. Tokens arrive as int64
+  tensors.
+* ``SyntheticVision`` — class-conditional Gaussian blobs over image space;
+  linearly separable. Images arrive as (B, H, W, C) f32 tensors, labels
+  as int64 tensors.
+
+Sampling is stateless: (seed, client, step) -> batch, on the reference's
+numpy PCG64 streams, so every batch holds the reference's values byte for
+byte. ``lm_batch_specs`` gives a token batch's stand-ins on the ``meta``
+device.
 """
 from __future__ import annotations
 
@@ -14,6 +19,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+def lm_batch_specs(batch: int, seq: int) -> dict:
+    """The reference's token batch (int32) as tensors on the meta device."""
+    spec = lambda: torch.empty((batch, seq), dtype=torch.int32, device="meta")
+    return {"tokens": spec(), "labels": spec()}
 
 
 @dataclass(frozen=True)
@@ -49,3 +60,34 @@ class SyntheticLM:
         toks = torch.from_numpy(toks)
         return {"tokens": toks[:, :-1].contiguous().to(device),
                 "labels": toks[:, 1:].contiguous().to(device)}
+
+
+@dataclass(frozen=True)
+class SyntheticVision:
+    n_classes: int = 10
+    img_size: int = 32
+    channels: int = 3
+    seed: int = 0
+    noise: float = 0.6
+
+    def _prototypes(self) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, 104729))
+        return rng.standard_normal(
+            (self.n_classes, self.img_size, self.img_size, self.channels)
+        ).astype(np.float32)
+
+    def batch(self, client: int, step: int, batch_size: int,
+              labels: np.ndarray | None = None,
+              device: str | torch.device = "cpu") -> dict:
+        """Images (B, H, W, C) f32 and labels (B,) int64, tensors on
+        ``device``; ``labels`` picks the classes, else they are drawn."""
+        rng = np.random.default_rng((self.seed, client, step))
+        if labels is None:
+            labels = rng.integers(0, self.n_classes, batch_size)
+        protos = self._prototypes()
+        imgs = protos[labels] + self.noise * rng.standard_normal(
+            (batch_size, self.img_size, self.img_size, self.channels)
+        ).astype(np.float32)
+        return {"images": torch.from_numpy(imgs).to(device),
+                "labels": torch.from_numpy(np.asarray(labels, np.int64))
+                .to(device)}

@@ -42,6 +42,10 @@ ENV_CODEC = "REPRO_AGG_CODEC"
 ENV_FAULTS = "REPRO_AGG_FAULTS"
 ENV_WORKERS = "REPRO_AGG_WORKERS"
 
+#: launcher-side: opt out of the tcmalloc LD_PRELOAD re-exec
+#: (``repro_torch.launch.hostenv.maybe_preload_tcmalloc``) with ``off``/``0``
+ENV_TCMALLOC = "REPRO_TCMALLOC"
+
 ALL_KNOBS = (ENV_ENGINE, ENV_SCHEDULE, ENV_READAHEAD, ENV_CODEC,
              ENV_FAULTS, ENV_WORKERS)
 
@@ -79,3 +83,7 @@ def env_faults(default: str = "") -> str:
 
 def env_workers(default=None):
     return os.environ.get(ENV_WORKERS, default)
+
+
+def env_tcmalloc() -> str:
+    return os.environ.get(ENV_TCMALLOC, "")

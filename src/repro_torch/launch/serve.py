@@ -1,0 +1,149 @@
+"""Batched serving: greedy KV-cache decode of a dense LM on one device.
+
+The counterpart of the reference's ``launch/serve.py``. ``make_serve_step``
+gives one decode step, ``(params, tokens, cache) -> (logits, cache)``;
+``serve_loop`` greedy-decodes a batch of seeded prompts: it prefills by
+repeated decode steps against the cache, then generates. On the card every
+norm of a step runs the rmsnorm kernel (2·L + 1 launches a step, 2·L more
+under ``qk_norm``). The reference's partition specs (a mesh, a sharding
+plan) wait for the multi-device slice (ROADMAP queue 1, item 4).
+
+Run (the smoke configuration, on the CPU)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+As in the reference, ``--smoke`` is on by default and cannot be turned
+off from the command line, so ``main`` always serves the smoke
+configuration; a full-width configuration is served by calling
+``serve_loop`` with it.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.core.sharding import resolve_device
+from repro_torch.launch.hostenv import host_timer, maybe_preload_tcmalloc
+from repro_torch.models import registry as models
+
+#: leaves that keep ``param_dtype`` when the weights are cast for serving:
+#: the reference's rmsnorm casts γ to f32, so a bf16 γ would change bits
+NORM_LEAVES = ("ln1", "ln2", "final_norm", "qnorm", "knorm")
+
+
+def cast_for_serving(params: dict, cfg: ModelConfig) -> dict:
+    """Every weight cast to ``cfg.compute_dtype`` once, the norms' γ left
+    as they are. The model casts each weight to the compute type before
+    its product; after this the cast is a no-op instead of a pass over
+    every weight each step, and the bits are the same."""
+    cd = cfg.compute_dtype
+    return {name: t if name.rsplit(".", 1)[-1] in NORM_LEAVES else t.to(cd)
+            for name, t in params.items()}
+
+
+def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                    cache_like=None, plan=None, donate: bool = True):
+    """One decode step on one device, ``(params, tokens, cache) -> (logits,
+    cache)``, under ``torch.inference_mode``. ``donate=True`` writes the
+    cache in place and returns it; ``donate=False`` leaves the caller's
+    cache as it was and returns a new one. ``shape`` and ``cache_like``
+    shape the reference's partition specs; a ``mesh`` or ``plan`` raises
+    until the multi-device slice."""
+    if mesh is not None or plan is not None:
+        raise NotImplementedError(
+            "make_serve_step runs on one device; meshes and sharding plans "
+            "are not ported yet (ROADMAP queue 1, item 4)")
+
+    @torch.inference_mode()
+    def serve_step(params, tokens, cache):
+        if not donate:
+            cache = {k: v.clone() for k, v in cache.items()}
+        return models.decode_step(params, cfg, tokens, cache)
+
+    return serve_step
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_loop(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 8,
+               max_new_tokens: int = 16, max_len: int = 64, seed: int = 0,
+               greedy: bool = True, device: str = "cuda",
+               params: dict | None = None) -> dict:
+    """Greedy decode: prefill via repeated decode steps, then generate.
+
+    Returns ``generated`` ((batch, max_new_tokens) int32 numpy),
+    ``tokens_per_s`` and ``wall_s``, the host wall of the decode loop,
+    which ends in a device synchronisation. Prompts are the reference's
+    seeded numpy draws. ``params`` (a parameter dict, e.g.
+    ``convert.params_from_jax``) are the weights; without them the
+    weights come from a ``torch.Generator`` on the device seeded with
+    ``seed``. Non-greedy decoding samples from a generator seeded with
+    ``seed`` (the reference draws from ``jax.random``: other tokens).
+    """
+    dev = resolve_device(device)
+    shape = ShapeConfig("serve", seq_len=max_len, global_batch=batch,
+                        kind="decode")
+    if params is None:
+        params = models.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    sampler = None if greedy else torch.Generator(device=dev).manual_seed(seed)
+    with torch.inference_mode():
+        params = cast_for_serving({k: v.to(dev) for k, v in params.items()},
+                                  cfg)
+        cache = models.init_cache(cfg, batch, max_len, device=dev)
+        step_fn = make_serve_step(cfg, shape, cache_like=cache)
+        prompt_t = torch.from_numpy(prompt).to(dev)
+        generated = []
+        tok = prompt_t[:, :1]
+        _sync(dev)
+        t0 = host_timer()
+        for t in range(prompt_len + max_new_tokens - 1):
+            logits, cache = step_fn(params, tok, cache)
+            if t + 1 < prompt_len:
+                tok = prompt_t[:, t + 1:t + 2]
+            else:
+                last = logits[:, -1]
+                nxt = torch.argmax(last, dim=-1) if greedy else \
+                    torch.multinomial(torch.softmax(last.float(), dim=-1), 1,
+                                      generator=sampler)[:, 0]
+                tok = nxt[:, None].to(torch.int32)
+                generated.append(tok)
+        gen = torch.cat(generated, dim=1).cpu().numpy() if generated \
+            else np.zeros((batch, 0), np.int32)
+        _sync(dev)
+        dt = host_timer() - t0
+    total_tokens = batch * (prompt_len + max_new_tokens - 1)
+    return {"generated": gen, "tokens_per_s": total_tokens / dt,
+            "wall_s": dt}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description="batched serving")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--new_tokens", type=int, default=16)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import get_arch
+    spec = get_arch(args.arch)
+    cfg = spec.smoke if args.smoke else spec.model
+    out = serve_loop(cfg, batch=args.batch, max_new_tokens=args.new_tokens,
+                     device=args.device)
+    print(f"[serve] {args.arch}: {out['tokens_per_s']:.1f} tok/s, "
+          f"generated shape {out['generated'].shape}")
+    return out
+
+
+if __name__ == "__main__":
+    maybe_preload_tcmalloc()
+    main()

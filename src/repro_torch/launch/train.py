@@ -3,7 +3,7 @@
 The port's share of the reference's ``launch/train.py``: the multi-round
 ``federated_train_loop``. The single-program trainer (``train_loop``,
 GSPMD and shard_map paths, checkpoints) is not ported yet (ROADMAP queue
-1, item 13).
+1, item 4).
 """
 from __future__ import annotations
 

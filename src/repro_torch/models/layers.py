@@ -16,11 +16,13 @@ probabilities and v are cast to f32 before the product); the loss is
 taken in f32. RMSNorm runs through the hand-written kernel
 (:mod:`repro_torch.kernels.rmsnorm`) on the card.
 
-The KV-chunked online-softmax attention (``attention_chunked``) and the
-2-D causal tiling (``attention_causal_2d``) of the reference serve
-sequences longer than ``cfg.attn_chunk``; they are not ported yet
-(ROADMAP queue 1, item 12), and :func:`attention` raises there. So does
-the decode path (``decode_attention_block``, KV cache).
+One-token decode runs against a ring-buffer KV cache
+(:func:`decode_attention_block`), with the grouped-query form of
+:func:`attention_dense` when ``cfg.decode_grouped_attn``. The KV-chunked
+online-softmax attention (``attention_chunked``) and the 2-D causal
+tiling (``attention_causal_2d``) of the reference serve sequences longer
+than ``cfg.attn_chunk``; they are not ported yet (ROADMAP queue 1, item
+3), and :func:`attention` raises there.
 """
 from __future__ import annotations
 
@@ -142,17 +144,30 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int,
 
 
 def attention_dense(q, k, v, *, q_pos, k_pos, causal=True, window=0,
-                    k_valid=None):
+                    k_valid=None, grouped=False):
     """q: (B,S,H,D); k,v: (B,T,KH,D). Returns (B,S,H,D) in q's type. The
     scores, softmax and weighted sum run in f32; the probabilities are
-    rounded to v's type first, as in the reference."""
-    d = q.shape[-1]
+    rounded to v's type first, as in the reference.
+
+    ``grouped=True`` keeps k and v at KH heads and runs a grouped-query
+    einsum (q reshaped to (B,S,KH,G,D)): no expansion of the cache to H
+    heads on the decode path."""
+    b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     bias = _mask_bias(q_pos, k_pos, causal=causal, window=window,
                       k_valid=k_valid)
-    k = _expand_kv(k, q.shape[2])
-    v = _expand_kv(v, q.shape[2])
     f32 = torch.float32
+    if grouped and k.shape[2] != h:
+        kh = k.shape[2]
+        qg = q.reshape(b, s, kh, h // kh, d)
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.to(f32),
+                              k.to(f32)) * scale
+        probs = torch.softmax(scores + bias[None, None, None], dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).to(f32),
+                           v.to(f32))
+        return out.reshape(b, s, h, d).to(q.dtype)
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
     scores = torch.einsum("bshd,bthd->bhst", q.to(f32), k.to(f32)) * scale
     probs = torch.softmax(scores + bias[None, None], dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype).to(f32),
@@ -169,7 +184,7 @@ def attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, chunk=0,
         raise NotImplementedError(
             f"sequence {k.shape[1]} is longer than attn_chunk {chunk}: "
             f"attention_chunked and attention_causal_2d are not ported yet "
-            f"(ROADMAP queue 1, item 12)")
+            f"(ROADMAP queue 1, item 3)")
     return attention_dense(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
                            window=window, k_valid=k_valid)
 
@@ -237,6 +252,34 @@ def self_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     o = attention(q, k, v, q_pos=positions, k_pos=positions, causal=causal,
                   window=cfg.sliding_window, chunk=cfg.attn_chunk,
                   causal_skip=cfg.attn_causal_skip)
+    return attn_out(p, o, cfg)
+
+
+def decode_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           idx: torch.Tensor) -> torch.Tensor:
+    """One-token decode against a (possibly ring-buffer) KV cache.
+
+    x: (B,1,D); k_cache/v_cache: (B,W,KH,hd); idx: a 0-d integer tensor on
+    x's device, the tokens already cached. Writes this token's k and v
+    into ring slot ``idx % W`` of the caches, in place, and returns the
+    block's output (B,1,D). Every index stays on the device: no host sync.
+    """
+    w = k_cache.shape[1]
+    pos = idx.reshape(1)
+    q, k, v = project_qkv(p, x, cfg, pos)
+    slot = torch.remainder(pos, w).long()
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    # absolute position held by each ring slot after this write; idx - j
+    # is negative for slots not yet filled, so the modulo must floor
+    j = torch.arange(w, device=idx.device)
+    k_pos = idx - torch.remainder(idx - j, w)
+    k_valid = k_pos >= torch.clamp(idx - w + 1, min=0)
+    o = attention_dense(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                        q_pos=pos, k_pos=k_pos, causal=True,
+                        window=cfg.sliding_window, k_valid=k_valid,
+                        grouped=cfg.decode_grouped_attn)
     return attn_out(p, o, cfg)
 
 

@@ -11,9 +11,12 @@ whose ``named_parameters()`` are those names.
 
 The layers run in a Python loop (the reference's ``lax.scan`` has no
 counterpart to keep); ``cfg.remat`` checkpoints each layer with
-``torch.utils.checkpoint``. The MoE, SSM and hybrid families, the
-encoder-decoder models and the KV-cache decode path are not ported yet
-(ROADMAP queue 1, item 12) and raise ``NotImplementedError``.
+``torch.utils.checkpoint``. One-token decode (:func:`decode_step`) runs
+against a KV cache, a dict ``{"idx": 0-d int32, "k", "v": (L, B, W, KH,
+hd)}`` whose ring buffer holds ``W = min(max_len, sliding_window)``
+positions. The MoE, SSM and hybrid families and the encoder-decoder
+models are not ported yet (ROADMAP queue 1, item 3) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ def _check_family(cfg: ModelConfig) -> None:
             or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"runs the dense decoder only (ROADMAP queue 1, item 12)")
+            f"runs the dense decoder only (ROADMAP queue 1, item 3)")
 
 
 def _join(prefix: str, tree: Mapping) -> dict:
@@ -137,9 +140,59 @@ def forward(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
                            use_reentrant=False)
         else:
             x = _attn_mlp_layer(lp, x, cfg, positions)
+    return _logits(params, cfg, x)
+
+
+def _logits(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
+            x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the LM head."""
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return L.lm_logits(x, head, cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token against the KV cache)
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The decode cache's tensors on the ``meta`` device (shapes and types,
+    no storage). A sliding window keeps a ring buffer of its width."""
+    _check_family(cfg)
+    w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    kv = (cfg.n_layers, batch, w, cfg.n_kv_heads, cfg.resolved_head_dim)
+    meta = torch.device("meta")
+    return {"idx": torch.empty((), dtype=torch.int32, device=meta),
+            "k": torch.empty(kv, dtype=dtype, device=meta),
+            "v": torch.empty(kv, dtype=dtype, device=meta)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cpu") -> dict:
+    """An empty decode cache (zeros, ``idx`` 0) on ``device``."""
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in cache_specs(cfg, batch, max_len, dtype).items()}
+
+
+def decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                tokens: torch.Tensor, cache: dict):
+    """tokens (B,1) -> (logits (B,1,V), cache). Writes this token's keys and
+    values into ``cache`` and advances its ``idx``, in place (the
+    reference's donated cache), and returns the same dict."""
+    _check_family(cfg)
+    idx = cache["idx"]
+    x = L.embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+    for lp, kc, vc in zip(_unstack(params, cfg.n_layers), cache["k"],
+                          cache["v"]):
+        x = x + L.decode_attention_block(
+            lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
+            k_cache=kc, v_cache=vc, idx=idx)
+        x = x + L.mlp_block(lp["mlp"], L.rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                            cfg)
+    idx.add_(1)
+    return _logits(params, cfg, x), cache
 
 
 def loss_fn(params: Mapping[str, torch.Tensor], cfg: ModelConfig,

@@ -1,8 +1,11 @@
 from repro_torch.optim.optimizers import (
+    AdamState,
     Optimizer,
+    adamw,
     apply_updates,
     global_norm,
     sgd,
 )
 
-__all__ = ["Optimizer", "apply_updates", "global_norm", "sgd"]
+__all__ = ["AdamState", "Optimizer", "adamw", "apply_updates",
+           "global_norm", "sgd"]

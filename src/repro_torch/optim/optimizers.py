@@ -1,15 +1,15 @@
 """Optimizers as ``(init, update)`` pairs on tensors and dicts of tensors.
 
-The port's share of the reference's ``optim/optimizers.py``: ``sgd`` (the
-paper's client and server optimizer, lr 0.01, momentum 0.9),
-``apply_updates`` and ``global_norm``. A tree is a tensor or a dict of
-tensors (a parameter dict). ``adamw`` waits with the trainer's
-``train_loop`` (ROADMAP queue 1, item 11).
+The reference's ``optim/optimizers.py``: ``sgd`` (the paper's client and
+server optimizer, lr 0.01, momentum 0.9), ``adamw``, ``apply_updates``
+and ``global_norm``. A tree is a tensor or a dict of tensors (a parameter
+dict). Updates are plain tensor ops in the reference's order (no
+``alpha=``, ``addcmul`` or ``lerp``, which fuse a multiply into an add).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
 
@@ -66,5 +66,49 @@ def sgd(lr: float, momentum: float = 0.0, nesterov: bool = False
         else:
             step = new_v
         return _tree_map(lambda s: -lr * s, step), new_v
+
+    return Optimizer(init, update)
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor          # 0-d int32
+    mu: Tree
+    nu: Tree
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0,
+          grad_clip_norm: float | None = None) -> Optimizer:
+    """AdamW with f32 moments and optional global-norm gradient clipping;
+    the step count lives on the parameters' device."""
+    f32 = torch.float32
+
+    def init(params):
+        z = lambda p: torch.zeros_like(p, dtype=f32)
+        step = torch.zeros((), dtype=torch.int32,
+                           device=_leaves(params)[0].device)
+        return AdamState(step, _tree_map(z, params), _tree_map(z, params))
+
+    def update(grads, state, params):
+        if grad_clip_norm is not None:
+            gn = global_norm(grads)
+            scale = torch.clamp(grad_clip_norm / (gn + 1e-9), max=1.0)
+            grads = _tree_map(lambda g: g * scale, grads)
+        step = state.step + 1
+        mu = _tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(f32),
+                       state.mu, grads)
+        nu = _tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(
+            g.to(f32)), state.nu, grads)
+        bc1 = 1 - b1 ** step.to(f32)
+        bc2 = 1 - b2 ** step.to(f32)
+
+        def upd(m, v, p):
+            u = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                u = u - lr * weight_decay * p.to(f32)
+            return u
+
+        updates = _tree_map(upd, mu, nu, params)
+        return updates, AdamState(step, mu, nu)
 
     return Optimizer(init, update)

@@ -674,7 +674,7 @@ def run_population_round(topology: str | Topology, pop: ClientPopulation, *,
     if host_mesh is not None:
         raise NotImplementedError(
             "the host_mesh engine is not ported yet (ROADMAP queue 1, "
-            "item 10: device collectives and the multi-device engine)")
+            "item 4: device collectives and the multi-device engine)")
     get_backend(engine)              # fail fast on unknown names
     get_pool(workers)                # and on bad worker counts
     device = resolve_device(device)

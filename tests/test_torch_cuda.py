@@ -655,3 +655,69 @@ def test_stale_weighted_round_batched_equals_streaming_on_card(monkeypatch):
     assert any(w != 1.0 for ws in weights for w in ws)
     for a, b in zip(chains["batched"], chains["streaming"]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# serving: the rmsnorm kernel at the decode shapes, one decode step
+# ---------------------------------------------------------------------------
+
+# (batch 4, d_model) of tinyllama, h2o-danube, gpt2-large and qwen2.5 /
+# qwen3; qwen3's q and k norms at batch 4: (4·64, 128) and (4·8, 128)
+DECODE_ROWS = [(4, 2048), (4, 2560), (4, 1280), (4, 5120), (256, 128),
+               (32, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", DECODE_ROWS)
+def test_rmsnorm_at_decode_rows_within_tolerance_on_card(rows, d):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(rows * d)
+    x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+    gamma = torch.randn(d, generator=gen, device="cuda")
+    before = rn.LAUNCHES
+    out, rstd = rn.rmsnorm(x, gamma)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES == before + 1
+    want, want_rstd = rn.rmsnorm_plain(x, gamma)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    assert _bf16_ulps(out, want) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-32b"])
+def test_decode_step_equals_plain_norms_on_card(arch, monkeypatch):
+    """One decode step of the smoke configuration at f32 on the card
+    through the rmsnorm kernel (2·L + 1 launches, 2·L more under qk-norm)
+    against the same step with the plain norm on the card: logits and
+    cache at rtol 1e-5, atol 1e-5."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import registry as models
+    cfg = dataclasses.replace(get_arch(arch).smoke,
+                              compute_dtype=torch.float32)
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(3), cfg)
+    tok = torch.randint(0, cfg.vocab, (2, 1), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(4))
+    out = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(rn, "rmsnorm", rn.rmsnorm_plain)
+        cache = models.init_cache(cfg, 2, 8, dtype=torch.float32,
+                                  device="cuda")
+        before = rn.LAUNCHES
+        for _ in range(3):                   # the third step reads two slots
+            logits, cache = models.decode_step(params, cfg, tok, cache)
+        torch.cuda.synchronize()
+        out[route] = (logits, cache, rn.LAUNCHES - before)
+    norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    assert out["kernel"][2] == 3 * norms and out["plain"][2] == 0
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
+                               atol=1e-5)
+    for key in ("k", "v"):
+        torch.testing.assert_close(out["kernel"][1][key],
+                                   out["plain"][1][key], rtol=1e-5,
+                                   atol=1e-5)
+    assert int(out["kernel"][1]["idx"]) == 3

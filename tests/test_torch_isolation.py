@@ -46,6 +46,9 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
         "import repro_torch.launch.federated_lm\n"
         "import repro_torch.core.sharded_tree, repro_torch.core.geo_tiered\n"
         "import repro_torch.serverless.population\n"
+        "import repro_torch.launch.serve, repro_torch.launch.hostenv\n"
+        "import repro_torch.checkpoint.manager\n"
+        "import repro_torch.checkpoint.reshard, repro_torch.data.partition\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

@@ -277,7 +277,7 @@ def test_population_refuses_unsupported_knobs():
         run("lifl", pop, colocated=True, **kw)
     with pytest.raises(NotImplementedError, match="population entry"):
         run("sharded_tree", pop, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         run("lambda_fl", pop, host_mesh=2, **kw)
     with pytest.raises(ValueError, match="client_grads"):
         FederatedSession(SessionConfig(population=pop, device="cpu")).round(

@@ -142,7 +142,7 @@ def test_unported_knobs_raise():
     """`host_mesh` is still unported and raises; `population` is ported:
     a population-backed session runs its round with no client gradients
     and equals the eager round over the materialized cohort."""
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         FederatedSession(device="cpu", host_mesh=2)
     pop = ClientPopulation(smoke.N_CLIENTS, grad_elems=smoke.GRAD_ELEMS,
                            seed=1234)
