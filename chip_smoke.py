@@ -117,7 +117,41 @@ Phases, each fatal on failure:
    (5e-3; h2o-danube's ring of 8 slots wraps over 14 steps), grouped
    against expanded decode (2e-5), qk-norm's launches. qwen2.5-14b and
    qwen3-32b do not fit this card at full width with f32 parameters (59
-   and 131 GB) beside the earlier phases.
+   and 131 GB) beside the earlier phases;
+13. the other families at full width, one model at a time, each freed
+   before the next: ``falcon-mamba-7b`` (Mamba-1, 64 layers),
+   ``zamba2-2.7b`` (Mamba-2 with the shared attention block, 54 layers),
+   ``whisper-tiny`` (encoder-decoder, its encoder run once over 1,500
+   frames at cache build), and at full width cut in depth
+   ``phi3.5-moe-42b-a6.6b`` (2 of 32 layers), ``dbrx-132b`` (1 of 40) and
+   ``chameleon-34b`` (2 of 48), which do not fit one card at full depth
+   with f32 parameters. First the rmsnorm kernel against its plain version
+   at these families' decode rows, (4, 384) to (4, 8192) = ``MAX_D`` and
+   chameleon's q-norm rows (256, 128), by device time beside its bound.
+   Then for each model: 12 f32 decode steps at batch 2 against
+   ``forward`` (5e-3; the MoE at capacity_factor 8.0), the rmsnorm
+   launches of each step equal to ``norms_per_decode_step(cfg)``; a bf16
+   ``serve_loop`` at the reference's defaults (its launches, tokens/s,
+   peak device memory); the median host wall of 20 decode steps; one
+   warmed-up step under the profiler (kernels, device busy, idle share of
+   the profiled step and of the median step) beside the step's bytes
+   bound (an MoE layer counts only the experts its tokens chose);
+14. long context at full width, f32, batch 1, S = 8,192:
+   ``tinyllama-1.1b``'s chunked attention (``attn_chunk`` 2,048) against
+   its dense attention, and ``h2o-danube-1.8b``'s 2-D causal tiling
+   (window 4,096) against its chunked attention, within 1e-3 on the
+   logits; the key blocks skipped, each path's host wall and peak device
+   memory;
+15. the federated CNN: the reference's e2e test loop
+   (``tests/test_fl_e2e.py``: 4 clients, 4 shards, 4 local steps at lr
+   0.05, momentum 0.9) on the card, batched engine, from the CPU tests'
+   seeded weights: the three topologies' models after 2 rounds agree
+   (rtol 1e-4, atol 1e-5) and equal the same rounds on the CPU, 6
+   GradsSharding rounds end above 0.5 accuracy, fused-SGD launches once a
+   leaf a local step and the fold kernel folds; then one round at the
+   default ``CNNConfig()`` width, its client and aggregation walls.
+
+Each phase's seconds are printed before the JSON lines.
 
 The last lines are a JSON object of timings and walls, a JSON ``kernels``
 line, and ``{"ok": true, "device": {...}}``.
@@ -1224,6 +1258,37 @@ def device_busy_ms(kernels) -> float:
     return (busy_us + cur_e - cur_s) / 1e3
 
 
+def profiled_step(step):
+    """One call of ``step`` under ``torch.profiler`` after a warm-up cycle
+    (a step first in the profiler's window loses kernels): its device
+    kernels (user annotations left out), the operator table and the
+    call's host wall in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    kept = {}
+
+    def ready(p):
+        kept["events"], kept["ops"] = list(p.events()), p.key_averages()
+    with torch.profiler.profile(
+            activities=acts, on_trace_ready=ready,
+            schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                             active=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    kernels = [e for e in kept.get("events", ())
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    return kernels, kept.get("ops", ()), wall_ms
+
+
 def phase_lm_profile(models, data, cfg, params):
     """One full-width local step (forward, backward, fused-SGD on every
     leaf) under ``torch.profiler``: device time by kernel name and the
@@ -1756,16 +1821,17 @@ DECODE_ROWS = {"tinyllama-1.1b": (4, 2048), "h2o-danube-1.8b": (4, 2560),
                "qwen3-32b q-norm": (256, 128)}
 
 
-def phase_serve_kernels(rn, peak):
+def phase_serve_kernels(rn, peak, decode_rows=DECODE_ROWS, tag="12"):
     """12 (1): the rmsnorm kernel against its plain version at every dense
     arch's decode rows (bf16 rows, f32 gamma; one bf16 ulp), by device time
     a call beside its bound; at (4, 2048) also F.rms_norm's device time and
-    both wrappers' host time a call."""
+    both wrappers' host time a call. Phase 13 runs it at the other
+    families' rows."""
     import torch
     bw, f32, _ = peak
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + int(tag))
     rows, max_err = {}, 0.0
-    for label, (r, d) in DECODE_ROWS.items():
+    for label, (r, d) in decode_rows.items():
         x = torch.randn(r, d, generator=gen, device="cuda").bfloat16()
         gamma = torch.randn(d, generator=gen, device="cuda")
         out, rstd = rn.rmsnorm(x, gamma)
@@ -1800,9 +1866,11 @@ def phase_serve_kernels(rn, peak):
         dev = "not measured" if row["device_ms"] is None else \
             f"{row['device_ms'] * 1e3:.3f} us " \
             f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound)"
-        print(f"[12] rmsnorm at ({r}, {d}) bf16 ({label}): within one bf16 "
-              f"ulp of plain; device {dev}, bound {row['bound_ms'] * 1e3:.3f} "
-              f"us ({row['bound_by']})")
+        print(f"[{tag}] rmsnorm at ({r}, {d}) bf16 ({label}): within one "
+              f"bf16 ulp of plain; device {dev}, bound "
+              f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    if "4x2048" not in rows:
+        return rows, max_err
     row = rows["4x2048"]
     lib_dev = "not measured" if row["library_device_ms"] is None else \
         f"{row['library_device_ms'] * 1e3:.3f} us"
@@ -1815,16 +1883,20 @@ def phase_serve_kernels(rn, peak):
 def _decode_against_forward(models, rn, cfg, batch, steps, seed, tol):
     """Teacher-forced decode of ``steps`` tokens on the card against the
     full forward (f32 compute, f32 cache), at rtol = atol = ``tol``; the
-    rmsnorm launches of each step and the largest error."""
+    rmsnorm launches of each step and the largest error. An
+    encoder-decoder decodes against seeded frames, its cache built from
+    them."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = models.init_params(gen, cfg)
     toks = torch.randint(0, cfg.vocab, (batch, steps), generator=gen,
                          device="cuda")
     with torch.inference_mode():
-        full = models.forward(params, cfg, {"tokens": toks})
-        cache = models.init_cache(cfg, batch, steps, dtype=torch.float32,
-                                  device="cuda")
+        cache, frames = _family_cache(models, cfg, params, batch, steps,
+                                      torch.float32, seed + 1)
+        inputs = {"tokens": toks} if frames is None else \
+            {"tokens": toks, "frames": frames}
+        full = models.forward(params, cfg, inputs)
         outs, per_step = [], []
         for i in range(steps):
             before = rn.LAUNCHES
@@ -1840,6 +1912,24 @@ def _decode_against_forward(models, rn, cfg, batch, steps, seed, tol):
         fail(f"{cfg.name}: decode != forward beyond rtol = atol = {tol} "
              f"(max abs err {float(err.max())})")
     return params, cache, per_step, float(err.max())
+
+
+def _family_cache(models, cfg, params, batch, max_len, dtype, seed):
+    """A decode cache on the card; an encoder-decoder's holds the
+    cross-attention K/V of seeded frames (the encoder's one run). Returns
+    the cache and the frames (None for a decoder-only model)."""
+    import torch
+    from repro_torch.models import encdec
+    if not models.is_encdec(cfg):
+        return models.init_cache(cfg, batch, max_len, dtype=dtype,
+                                 device="cuda"), None
+    frames = torch.randn(
+        (batch, cfg.encoder_seq, cfg.frontend_dim or cfg.d_model),
+        device="cuda", generator=torch.Generator(device="cuda").manual_seed(
+            seed))
+    return encdec.init_cache(cfg, batch, max_len, params=params,
+                             frames=frames, dtype=dtype,
+                             device="cuda"), frames
 
 
 def phase_serve_f32(models, rn, cfg):
@@ -1863,24 +1953,11 @@ def phase_serve_f32(models, rn, cfg):
     return {"max_abs_err": err, "rmsnorm_per_step": norms}
 
 
-def _step_bytes(params, cfg, idx: int) -> int:
-    """Bytes one decode step must move at batch B: every weight once in
-    its serving type (the embedding: B rows), the valid K/V slots read and
-    this token's written, the logits written."""
-    b, kv = SERVE["batch"], cfg.n_kv_heads * cfg.resolved_head_dim
-    weights = sum(t.numel() * t.element_size() for name, t in params.items()
-                  if name != "embed")
-    embed = b * cfg.d_model * params["embed"].element_size()
-    kv_bytes = 2 * cfg.n_layers * b * kv * 2 * (idx + 1 + 1)
-    return weights + embed + kv_bytes + b * cfg.vocab * 2
-
-
 def phase_serve_loop(serve, models, rn, cfg, peak):
     """12 (3): serve_loop at full width with the reference's defaults, then
     decode steps timed by the host clock, one step under the profiler, and
     the step's bytes bound."""
     import torch
-    from torch.autograd import DeviceType
     from repro_torch.config import ShapeConfig
     from repro_torch.models import transformer
     bw = peak[0]
@@ -1927,32 +2004,12 @@ def phase_serve_loop(serve, models, rn, cfg, peak):
             fail("a decode step's logits are not finite")
         unstack_us = host_us(lambda: transformer._unstack(sp, cfg.n_layers),
                              calls=50)
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        # one step to warm the profiler up, then the step it keeps
-        kept = {}
-
-        def ready(p):
-            kept["events"], kept["ops"] = list(p.events()), p.key_averages()
-        with torch.profiler.profile(
-                activities=acts, on_trace_ready=ready,
-                schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                 active=1)) as prof:
-            step(sp, tok, cache)
-            torch.cuda.synchronize()
-            prof.step()
-            idx = int(cache["idx"])
-            t0 = time.perf_counter()
-            step(sp, tok, cache)
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
-    nbytes = _step_bytes(sp, cfg, idx)
+        kernels, ops, prof_wall_ms = profiled_step(
+            lambda: step(sp, tok, cache))
+    idx = int(cache["idx"]) - 1          # the slots the profiled step read
+    nbytes = _step_bytes(sp, cache, cfg, idx)
     bound_ms = nbytes / bw * 1e3
     step_ms = statistics.median(walls)
-    kernels = [e for e in kept.get("events", ())
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
     prof_out = None
     if kernels:
         busy = device_busy_ms(kernels)
@@ -1970,8 +2027,7 @@ def phase_serve_loop(serve, models, rn, cfg, peak):
                     # where the host's time goes: operators by self time
                     "host_top": [[e.key[:60], e.self_cpu_time_total / 1e3,
                                   e.count] for e in sorted(
-                        kept["ops"],
-                        key=lambda e: -e.self_cpu_time_total)[:12]]}
+                        ops, key=lambda e: -e.self_cpu_time_total)[:12]]}
     res = {"generated_shape": list(gen.shape), "tokens_per_s":
            out["tokens_per_s"], "loop_wall_s": out["wall_s"],
            "launches": launches, "peak_memory_gb": peak_gb,
@@ -2060,6 +2116,439 @@ def phase_serve_archs(models, rn, get_arch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the MoE, VLM, SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept): None runs the registered depth; the MoE and VLM
+# archs do not fit one card at full depth with f32 parameters (41.9 B,
+# 131.6 B and 34.3 B parameters), so they keep their full width and are cut
+# to these depths
+FAMILY_RUNS = (("falcon-mamba-7b", None), ("zamba2-2.7b", None),
+               ("whisper-tiny", None), ("phi3.5-moe-42b-a6.6b", 2),
+               ("dbrx-132b", 1), ("chameleon-34b", 2))
+# the rows these families' norms get at batch 4 (bf16 rows, f32 gamma):
+# (batch, d_model), zamba2's gated norm at d_inner, chameleon's q-norm
+# (batch · heads, head_dim)
+FAMILY_ROWS = {"whisper-tiny": (4, 384), "zamba2-2.7b": (4, 2560),
+               "zamba2-2.7b gated norm": (4, 5120),
+               "falcon-mamba-7b / phi3.5-moe": (4, 4096),
+               "dbrx-132b": (4, 6144), "chameleon-34b (MAX_D)": (4, 8192),
+               "chameleon-34b q-norm": (256, 128)}
+
+
+def _family_cfg(get_arch, arch, layers, **over):
+    model = get_arch(arch).model
+    return dataclasses.replace(model, remat=False,
+                               n_layers=layers or model.n_layers, **over)
+
+
+def _family_decode_check(models, rn, cfg):
+    """13 (1): 12 teacher-forced f32 decode steps at batch 2 against the
+    full forward (5e-3; the MoE at capacity_factor 8.0, as the reference's
+    test), the rmsnorm launches of each step equal to the config's count.
+    Returns the f32 parameters for the serving loop."""
+    import torch
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    if cfg.moe is not None:
+        f32 = dataclasses.replace(f32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    params, _, per_step, err = _decode_against_forward(
+        models, rn, f32, 2, DECODE_CHECK_STEPS, SEED + 17, 5e-3)
+    norms = models.norms_per_decode_step(cfg)
+    if per_step != [norms] * DECODE_CHECK_STEPS:
+        fail(f"{cfg.name}: rmsnorm launches a decode step {per_step}, "
+             f"expected {norms} from the config")
+    return params, err, norms
+
+
+def _step_bytes(sp, cache, cfg, idx: int, experts=()) -> int:
+    """Bytes one decode step must move at batch B: every weight once in its
+    serving type (the embedding: B rows; an MoE layer: only the experts
+    this step's tokens chose), the valid K/V slots read and this token's
+    written, the SSM states and conv histories read and written, the
+    cross-attention K/V read, the logits written."""
+    b = SERVE["batch"]
+    total = 0
+    for name, t in sp.items():
+        nbytes = t.numel() * t.element_size()
+        if name == "embed":
+            nbytes = b * cfg.d_model * t.element_size()
+        elif name.split(".")[-2:-1] == ["moe"] and name[-2:] in ("w1", "w2",
+                                                                 "w3"):
+            per_expert = nbytes // (t.shape[0] * t.shape[1])
+            nbytes = per_expert * sum(experts)
+        total += nbytes
+    if "k" in cache:
+        blocks, _, _, kh, hd = cache["k"].shape
+        total += 2 * blocks * b * kh * hd * cache["k"].element_size() \
+            * (idx + 1 + 1)
+    for t in cache.get("mamba", {}).values():
+        total += 2 * t.numel() * t.element_size()
+    for key in ("xk", "xv"):
+        if key in cache:
+            total += cache[key].numel() * cache[key].element_size()
+    return total + b * cfg.vocab * 2
+
+
+def _family_serve(serve, models, moe, rn, cfg, params, peak):
+    """13 (2): serve_loop in bf16 at the reference's defaults (its rmsnorm
+    launches, tokens/s, peak device memory), then decode steps on the cast
+    weights timed by the host clock, and one warmed-up step under the
+    profiler beside the step's bytes bound."""
+    import torch
+    from repro_torch.config import ShapeConfig
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    norms = models.norms_per_decode_step(cfg)
+    rn.LAUNCHES = 0                      # the serving path starts here
+    out = serve.serve_loop(cfg, params=params, seed=0, device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    launches = rn.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gen = out["generated"]
+    # an encoder-decoder's cache build runs the encoder once: two norms a
+    # layer and its final norm
+    encoder = 2 * cfg.encoder_layers + 1 if models.is_encdec(cfg) else 0
+    if launches != norms * SERVE_STEPS + encoder:
+        fail(f"{cfg.name}: serve_loop launched rmsnorm {launches} times, "
+             f"expected {norms} x {SERVE_STEPS} + {encoder}")
+    if gen.shape != (SERVE["batch"], SERVE["max_new_tokens"]) \
+            or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        fail(f"{cfg.name}: serve_loop generated {gen.dtype} {gen.shape}")
+    shape = ShapeConfig("serve", seq_len=SERVE["max_len"],
+                        global_batch=SERVE["batch"], kind="decode")
+    experts, route = [], moe.route
+
+    def counted_route(p, x, c):
+        chosen = route(p, x, c)
+        experts.append(int(torch.unique(chosen[1]).numel()))
+        return chosen
+    with torch.inference_mode():
+        sp = serve.cast_for_serving(params, cfg)
+        cache, _ = _family_cache(models, cfg, sp, SERVE["batch"],
+                                 SERVE["max_len"], torch.bfloat16, 1)
+        step = serve.make_serve_step(cfg, shape, cache_like=cache)
+        tok = torch.from_numpy(gen[:, :1].copy()).to("cuda")
+        walls = []
+        for i in range(3 + SERVE_TIMED_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = step(sp, tok, cache)
+            torch.cuda.synchronize()
+            if i >= 3:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{cfg.name}: a decode step's logits are not finite")
+        moe.route = counted_route
+        try:
+            kernels, _, prof_wall_ms = profiled_step(
+                lambda: step(sp, tok, cache))
+        finally:
+            moe.route = route
+    # the profiled step: the second of the two, the later half of the
+    # routing counts, the slots it read
+    experts = experts[len(experts) // 2:]
+    idx = int(cache["idx"]) - 1
+    nbytes = _step_bytes(sp, cache, cfg, idx, experts)
+    bound_ms = nbytes / peak[0] * 1e3
+    del sp, cache
+    prof_out = None
+    if kernels:
+        busy = device_busy_ms(kernels)
+        prof_out = {"step_wall_ms": prof_wall_ms, "device_busy_ms": busy,
+                    "idle_share": 1.0 - busy / prof_wall_ms,
+                    "kernels": len(kernels),
+                    "rmsnorm_launches": sum(1 for e in kernels
+                                            if "rmsnorm_kernel" in e.name),
+                    "bound_share_of_busy": bound_ms / busy}
+    step_ms = statistics.median(walls)
+    if prof_out is not None:
+        # the profiler slows the host: the busy time against the median
+        # unprofiled step as well
+        prof_out["idle_share_of_median_step"] = \
+            max(0.0, 1.0 - prof_out["device_busy_ms"] / step_ms)
+    return {"tokens_per_s": out["tokens_per_s"], "loop_wall_s": out["wall_s"],
+            "launches": launches, "rmsnorm_per_step": norms,
+            "peak_memory_gb": peak_gb, "step_walls_ms": walls,
+            "step_median_ms": step_ms, "step_bytes": nbytes,
+            "step_bound_ms": bound_ms, "experts_per_moe_layer": experts,
+            "bound_share_of_step": bound_ms / step_ms, "profile": prof_out}
+
+
+def phase_families(serve, models, moe, rn, get_arch, peak, card):
+    """13: each family at full width (the MoE and VLM archs cut in depth),
+    one model at a time, freed before the next."""
+    import torch
+    out = {}
+    for arch, layers in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        cfg = _family_cfg(get_arch, arch, layers)
+        params, err, norms = _family_decode_check(models, rn, cfg)
+        torch.cuda.empty_cache()
+        row = _family_serve(serve, models, moe, rn, cfg, params,
+                            peak)
+        del params
+        torch.cuda.empty_cache()
+        row.update({"n_layers": cfg.n_layers,
+                    "registered_layers": get_arch(arch).model.n_layers,
+                    "params": models.param_count(cfg),
+                    "decode_max_abs_err": err,
+                    "seconds": time.perf_counter() - t0})
+        out[arch] = row
+        cut = "" if layers is None else \
+            f", cut to {cfg.n_layers} of {row['registered_layers']} layers"
+        prof = row["profile"]
+        prof_txt = "profile: no device activity recorded; not measured" \
+            if prof is None else (
+                f"one profiled step {prof['step_wall_ms']:.3f} ms host wall, "
+                f"{prof['kernels']} kernels, device busy "
+                f"{prof['device_busy_ms']:.3f} ms "
+                f"({100 * prof['idle_share']:.1f}% idle; "
+                f"{100 * prof['idle_share_of_median_step']:.1f}% of the "
+                f"median step), bound "
+                f"{100 * prof['bound_share_of_busy']:.1f}% of busy")
+        print(f"[13] {arch} ({row['params']:,} parameters{cut}; {card}): "
+              f"f32 decode == forward within 5e-3 (max abs err {err:.3g}); "
+              f"{norms} rmsnorm launches a step; bf16 serve_loop "
+              f"{row['tokens_per_s']:.1f} tokens/s, median step "
+              f"{row['step_median_ms']:.3f} ms, peak device memory "
+              f"{row['peak_memory_gb']:.2f} GB; step bytes bound "
+              f"{row['step_bound_ms']:.4f} ms ({row['step_bytes']} bytes); "
+              f"{prof_txt}; {row['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: long context at full width
+# ---------------------------------------------------------------------------
+
+LONG_SEQ = 8192
+
+
+def _long_forward(models, cfg, params, toks):
+    """One f32 forward at batch 1 on the card: logits, host wall, peak
+    device memory."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = models.forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_long_context(models, layers, get_arch, card):
+    """14: tinyllama-1.1b's chunked attention against its dense attention,
+    and h2o-danube-1.8b's 2-D causal tiling against its chunked attention,
+    at S = 8,192, f32, batch 1, within 1e-3 on the logits."""
+    import torch
+    out = {}
+    runs = (("tinyllama-1.1b", ("dense", dict(attn_chunk=0)),
+             ("chunked", dict(attn_chunk=2048))),
+            ("h2o-danube-1.8b", ("chunked", dict(attn_chunk=2048)),
+             ("causal_2d", dict(attn_chunk=2048, attn_causal_skip=True))))
+    for arch, (ref_name, ref_over), (name, over) in runs:
+        t0 = time.perf_counter()
+        base = _family_cfg(get_arch, arch, None, compute_dtype=torch.float32)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+        params = models.init_params(gen, base)
+        toks = torch.randint(0, base.vocab, (1, LONG_SEQ), generator=gen,
+                             device="cuda")
+        want, ref_wall, ref_peak = _long_forward(
+            models, dataclasses.replace(base, **ref_over), params, toks)
+        # the 2-D tiling's calls: (S, window, chunk) of each layer's
+        tiled, tile = [], layers.attention_causal_2d
+
+        def counted_tile(q, k, v, **kw):
+            tiled.append((q.shape[1], kw["window"], kw["chunk"]))
+            return tile(q, k, v, **kw)
+        layers.attention_causal_2d = counted_tile
+        try:
+            got, wall, peak_gb = _long_forward(
+                models, dataclasses.replace(base, **over), params, toks)
+        finally:
+            layers.attention_causal_2d = tile
+        err = (got - want).abs()
+        if not bool(torch.isfinite(got).all()) or \
+                not bool((err <= 1e-3 + 1e-3 * want.abs()).all()):
+            fail(f"{arch}: {name} attention != {ref_name} beyond 1e-3 at "
+                 f"S = {LONG_SEQ} (max abs err {float(err.max())})")
+        chunk = over["attn_chunk"]
+        nq = LONG_SEQ // chunk
+        want_calls = [(LONG_SEQ, base.sliding_window, chunk)] * \
+            base.n_layers if name == "causal_2d" else []
+        if tiled != want_calls:
+            fail(f"{arch}: attention_causal_2d ran {len(tiled)} times "
+                 f"({tiled[:1]}), expected {len(want_calls)}")
+        # each query block i reads the key blocks from the first one its
+        # window reaches (0 without a window) to the diagonal
+        skipped = sum(nq - (i + 1 - (max(0, (i * chunk - w + 1) // chunk)
+                                     if w else 0))
+                      for _, w, _ in tiled for i in range(nq))
+        row = {"paths": [ref_name, name], "max_abs_err": float(err.max()),
+               "walls_s": [ref_wall, wall], "peak_memory_gb":
+                   [ref_peak, peak_gb], "skipped_key_blocks": skipped,
+               "key_blocks": base.n_layers * nq * nq}
+        del params, want, got, err
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t0
+        out[arch] = row
+        skip_txt = "" if name != "causal_2d" else \
+            f"; skipped {skipped} of {row['key_blocks']} key blocks"
+        print(f"[14] {arch} at S = {LONG_SEQ}, f32, batch 1 ({card}): "
+              f"{name} == {ref_name} within 1e-3 (max abs err "
+              f"{row['max_abs_err']:.3g}); host wall {ref_name} "
+              f"{ref_wall:.3f} s, {name} {wall:.3f} s; peak device memory "
+              f"{ref_name} {ref_peak:.2f} GB, {name} {peak_gb:.2f} GB"
+              f"{skip_txt}; {row['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the federated CNN
+# ---------------------------------------------------------------------------
+
+CNN_RUN = dict(clients=4, shards=4, local_steps=4, lr=0.05, momentum=0.9,
+               batch=32)
+
+
+def _cnn_rounds(cnn, agg, fedavg, flatten, unflatten, LambdaRuntime,
+                ObjectStore, cfg, data, topology: str, rounds: int,
+                device: str = "cuda"):
+    """The reference's e2e loop (``tests/test_fl_e2e.py``) on ``device``,
+    batched engine, from the CPU generator's seeded weights (the CPU
+    tests' start): parameters, test accuracies, client and aggregation
+    walls."""
+    import torch
+    params = {k: v.to(device) for k, v in cnn.init_params(
+        torch.Generator().manual_seed(0), cfg).items()}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    store, rt = ObjectStore(), LambdaRuntime()
+    loss = lambda p, b: cnn.loss_fn(p, cfg, b)
+    accs, client_walls, agg_walls = [], [], []
+    for rnd in range(rounds):
+        flats, spec = [], None
+        for c in range(CNN_RUN["clients"]):
+            t0 = time.perf_counter()
+            local = {k: v.clone() for k, v in params.items()}
+            vel = None
+            for step in range(CNN_RUN["local_steps"]):
+                batch = data.batch(c, rnd * 10 + step, CNN_RUN["batch"],
+                                   device=device)
+                local, vel, _ = fedavg.local_sgd_update(
+                    loss, local, batch, lr=CNN_RUN["lr"],
+                    momentum=CNN_RUN["momentum"], velocity=vel)
+            flat, spec = flatten(fedavg.model_delta(params, local))
+            flats.append(flat)
+            sync()
+            client_walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        r = agg.aggregate_round(topology, flats, rnd=rnd, store=store,
+                                runtime=rt, n_shards=CNN_RUN["shards"],
+                                codec="identity", engine="batched")
+        sync()
+        agg_walls.append(time.perf_counter() - t0)
+        params = fedavg.apply_delta(params, unflatten(r.avg_flat, spec))
+        with torch.no_grad():
+            _, m = cnn.loss_fn(params, cfg, data.batch(99, 999, 128,
+                                                       device=device))
+        accs.append(float(m["acc"]))
+    return params, accs, client_walls, agg_walls
+
+
+def phase_federated_cnn(fs, sgd, card):
+    """15: the reference's federated CNN test loop on the card: the three
+    topologies' models after 2 rounds agree (1e-4 / 1e-5), 6 GradsSharding
+    rounds end above 0.5 accuracy, fused-SGD launches once a leaf a local
+    step and the fold kernel folds; then one round at the default
+    ``CNNConfig()`` width."""
+    import torch
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import fedavg
+    from repro_torch.core.sharding import flatten, unflatten
+    from repro_torch.data import SyntheticVision
+    from repro_torch.models import cnn
+    from repro_torch.serverless import LambdaRuntime
+    from repro_torch.store import ObjectStore
+    t0 = time.perf_counter()
+    cfg = cnn.CNNConfig(n_classes=4, channels=(8, 16), blocks_per_stage=1,
+                        img_size=8)
+    data = SyntheticVision(n_classes=4, img_size=8, seed=0, noise=0.4)
+    run = lambda c, d, topo, n, device="cuda": _cnn_rounds(
+        cnn, agg, fedavg, flatten, unflatten, LambdaRuntime, ObjectStore, c,
+        d, topo, n, device)
+    leaves = len(cnn.param_shapes(cfg))
+    # cuDNN's deterministic algorithms: the three topologies' runs train
+    # the same client deltas, so only the aggregation can differ
+    torch.backends.cudnn.deterministic = True
+    sgd.LAUNCHES = fs.LAUNCHES = 0       # the federated CNN path starts here
+    finals = {topo: flatten(run(cfg, data, topo, 2)[0])[0]
+              for topo in TOPOLOGIES}
+    _, accs, client_walls, agg_walls = run(cfg, data, "gradssharding", 6)
+    torch.cuda.synchronize()
+    sgd_launches, fold_launches = sgd.LAUNCHES, fs.LAUNCHES
+    want_sgd = leaves * CNN_RUN["local_steps"] * CNN_RUN["clients"] * (
+        2 * len(TOPOLOGIES) + 6)
+    if sgd_launches != want_sgd:
+        fail(f"fused_sgd launched {sgd_launches} times on the CNN path, "
+             f"expected {want_sgd} (one a leaf a local step)")
+    if fold_launches == 0:
+        fail("the CNN rounds never launched the fold kernel")
+    head = finals["gradssharding"]
+    agree = {}
+    for topo in TOPOLOGIES[1:]:
+        diff = (finals[topo] - head).abs()
+        agree[topo] = float(diff.max())
+        if not bool((diff <= 1e-5 + 1e-4 * head.abs()).all()):
+            fail(f"the CNN after 2 {topo} rounds != gradssharding beyond "
+                 f"rtol 1e-4, atol 1e-5 (max abs err {agree[topo]})")
+    if not accs[-1] > 0.5 or accs[-1] < accs[0] - 0.05:
+        fail(f"6 GradsSharding CNN rounds did not learn: accuracies {accs}")
+    # the same 2 GradsSharding rounds on the CPU (where the tests hold the
+    # port against the reference)
+    on_cpu = flatten(run(cfg, data, "gradssharding", 2, "cpu")[0])[0]
+    cpu_err = float((head.cpu() - on_cpu).abs().max())
+    if not bool(((head.cpu() - on_cpu).abs()
+                 <= 1e-5 + 1e-4 * on_cpu.abs()).all()):
+        fail(f"the CNN after 2 GradsSharding rounds on the card != on the "
+             f"CPU beyond rtol 1e-4, atol 1e-5 (max abs err {cpu_err})")
+    # one round at the default width (16/32/64 channels, 32x32 images)
+    wide = cnn.CNNConfig()
+    wide_data = SyntheticVision(n_classes=wide.n_classes, img_size=32,
+                                seed=0, noise=0.4)
+    _, wide_accs, wide_client, wide_agg = run(wide, wide_data,
+                                              "gradssharding", 1)
+    out = {"fused_sgd_launches": sgd_launches,
+           "fold_launches": fold_launches, "leaves": leaves,
+           "max_abs_diff_vs_gradssharding": agree,
+           "max_abs_diff_card_vs_cpu": cpu_err, "accuracies": accs,
+           "client_walls_s": client_walls, "agg_walls_s": agg_walls,
+           "default_width": {"params": sum(math.prod(s) for s in
+                                           cnn.param_shapes(wide).values()),
+                             "accuracy": wide_accs[0],
+                             "client_walls_s": wide_client,
+                             "agg_wall_s": wide_agg[0]},
+           "seconds": time.perf_counter() - t0}
+    print(f"[15] federated CNN on the card ({card}): lambda_fl and lifl == "
+          f"gradssharding after 2 rounds within rtol 1e-4, atol 1e-5 (max "
+          f"abs diff {', '.join(f'{k} {v:.3g}' for k, v in agree.items())}"
+          f"), and == the same rounds on the CPU (max abs diff "
+          f"{cpu_err:.3g}); 6 GradsSharding rounds, accuracy "
+          f"{' '.join(f'{a:.3f}' for a in accs)}; fused_sgd {sgd_launches} "
+          f"launches ({leaves} leaves x {CNN_RUN['local_steps']} steps x "
+          f"{CNN_RUN['clients']} clients x 12 rounds), fold {fold_launches} "
+          f"launches; median client wall "
+          f"{statistics.median(client_walls) * 1e3:.1f} ms, median "
+          f"aggregation wall {statistics.median(agg_walls) * 1e3:.1f} ms")
+    print(f"     default CNNConfig() ({out['default_width']['params']:,} "
+          f"parameters): one round, median client wall "
+          f"{statistics.median(wide_client) * 1e3:.1f} ms, aggregation "
+          f"wall {wide_agg[0] * 1e3:.1f} ms; {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -2080,6 +2569,7 @@ def main() -> None:
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import federated_lm, serve
     from repro_torch.models import layers
+    from repro_torch.models import moe
     from repro_torch.models import registry as models
     from repro_torch import smoke
     from repro_torch.config import LambdaLimits
@@ -2087,7 +2577,9 @@ def main() -> None:
     from repro_torch.serverless.faults import FaultModel
     from repro_torch.serverless.population import ClientPopulation
 
+    clock = [("start", time.perf_counter())]
     phase_build(build)
+    clock.append(("2 build", time.perf_counter()))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     grads = [torch.randn(VGG16.params, generator=gen, device="cuda")
              for _ in range(N_CLIENTS)]
@@ -2100,6 +2592,8 @@ def main() -> None:
         fs, q, tk, grads, cm, plan_uniform, FederatedSession)
     codec_rows = phase_codec_timings(q, tk, grads, plan_uniform, peaks(name))
     del grads
+    clock.append(("3-6 kernels, pinned keys, VGG-16 rounds",
+                  time.perf_counter()))
 
     # f32 products in the model run in full f32 (no TF32), as stated
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2121,6 +2615,7 @@ def main() -> None:
     lm_profile = phase_lm_profile(models, lm_data, lm_cfg, trained)
     del trained
     torch.cuda.empty_cache()
+    clock.append(("7 federated LM", time.perf_counter()))
 
     # phases 8-9: the same VGG-16 gradients, drawn again from the seed
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2140,6 +2635,8 @@ def main() -> None:
                                        ClientPopulation)
     carry_rows = phase_carry_timing(fs, build, peaks(name))
     torch.cuda.empty_cache()
+    clock.append(("8-11 faults, plugins, population, carry",
+                  time.perf_counter()))
 
     # phase 12: serving
     serve_norms, serve_norm_err = phase_serve_kernels(rn, peaks(name))
@@ -2150,6 +2647,26 @@ def main() -> None:
         get_arch(LM_ARCH).model, remat=False), peaks(name))
     torch.cuda.empty_cache()
     serve_archs = phase_serve_archs(models, rn, get_arch)
+    torch.cuda.empty_cache()
+    clock.append(("12 serving", time.perf_counter()))
+
+    # phase 13: the other families at full width
+    family_norms, family_norm_err = phase_serve_kernels(
+        rn, peaks(name), FAMILY_ROWS, tag="13")
+    families = phase_families(serve, models, moe, rn, get_arch,
+                              peaks(name), card)
+    clock.append(("13 families", time.perf_counter()))
+    # phase 14: long context
+    long_ctx = phase_long_context(models, layers, get_arch, card)
+    clock.append(("14 long context", time.perf_counter()))
+    # phase 15: the federated CNN
+    fl_cnn = phase_federated_cnn(fs, sgd, card)
+    clock.append(("15 federated CNN", time.perf_counter()))
+    phase_s = {label: t - clock[i][1]
+               for i, (label, t) in enumerate(clock[1:])}
+    print(f"phase seconds ({card}): " + ", ".join(
+        f"{label} {secs:.1f}" for label, secs in phase_s.items())
+        + f"; total {clock[-1][1] - clock[0][1]:.1f}")
 
     head = rows[0]                       # the GradsSharding wave
     print(json.dumps({"waves": rows, "round_walls_s": walls,
@@ -2171,12 +2688,17 @@ def main() -> None:
                       "serve": {"rmsnorm_decode_rows": serve_norms,
                                 "f32_decode": serve_f32, "loop": serve_out,
                                 "smoke_archs": serve_archs},
+                      "families": {"rmsnorm_rows": family_norms,
+                                   "models": families},
+                      "long_context": long_ctx, "federated_cnn": fl_cnn,
+                      "phase_seconds": phase_s,
                       "card": card}))
     kernels = [{
         "name": "fedavg_stream", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_stream.cu",
         "replaces": "src/repro/kernels/fedavg_stream.py:47",
-        "launches": launches + fault_launches + sum(pop_launches.values()),
+        "launches": launches + fault_launches + sum(pop_launches.values())
+        + fl_cnn["fold_launches"],
         "max_abs_err": max_err,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2209,13 +2731,18 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "equal_plain": exact})
     step = lm_rows["fused_sgd"]
-    kernels[-2].update({"device_ms": step["device_ms"],
+    kernels[-2].update({"launches": lm_launches["fused_sgd"]
+                        + fl_cnn["fused_sgd_launches"],
+                        "device_ms": step["device_ms"],
                         "library_device_ms": step["library_device_ms"]})
     norm = lm_rows["rmsnorm"]
     decode_norm = serve_norms["4x2048"]
+    family_launches = sum(r["launches"] for r in families.values())
     kernels[-1].update({
-        "launches": lm_launches["rmsnorm"] + serve_out["launches"],
-        "max_abs_err": max(lm_errs["rmsnorm"], serve_norm_err),
+        "launches": lm_launches["rmsnorm"] + serve_out["launches"]
+        + family_launches,
+        "max_abs_err": max(lm_errs["rmsnorm"], serve_norm_err,
+                           family_norm_err),
         "device_ms": norm["device_ms"],
         "library_device_ms": norm["library_device_ms"],
         "copy_device_ms": norm["copy_device_ms"],
@@ -2228,7 +2755,14 @@ def main() -> None:
                   "library_ms": decode_norm["library_ms"],
                   "library_device_ms": decode_norm["library_device_ms"],
                   "host_us": decode_norm["host_us"],
-                  "library_host_us": decode_norm["library_host_us"]}})
+                  "library_host_us": decode_norm["library_host_us"]},
+        "families": {"launches": family_launches,
+                     "per_step": {a: r["rmsnorm_per_step"]
+                                  for a, r in families.items()},
+                     "rows": {k: {key: r[key] for key in
+                                  ("device_ms", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}
+                              for k, r in family_norms.items()}}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
-"""Batched serving: greedy KV-cache decode of a dense LM on one device.
+"""Batched serving: greedy cache decode of an LM of any family on one
+device.
 
 The counterpart of the reference's ``launch/serve.py``. ``make_serve_step``
 gives one decode step, ``(params, tokens, cache) -> (logits, cache)``;
 ``serve_loop`` greedy-decodes a batch of seeded prompts: it prefills by
-repeated decode steps against the cache, then generates. On the card every
-norm of a step runs the rmsnorm kernel (2·L + 1 launches a step, 2·L more
-under ``qk_norm``). The reference's partition specs (a mesh, a sharding
-plan) wait for the multi-device slice (ROADMAP queue 1, item 4).
+repeated decode steps against the cache, then generates. An
+encoder-decoder model's cache is built once from seeded frame embeddings
+(the encoder's one run). On the card every norm of a step runs the
+rmsnorm kernel (2·L + 1 launches a step for an attention stack, 2·L more
+under ``qk_norm``; ``models.norms_per_decode_step`` counts every family).
+The reference's partition specs (a mesh, a sharding plan) wait for the
+multi-device slice (ROADMAP queue 1, item 4).
 
 Run (the smoke configuration, on the CPU)::
 
@@ -27,20 +31,27 @@ import torch
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.core.sharding import resolve_device
 from repro_torch.launch.hostenv import host_timer, maybe_preload_tcmalloc
+from repro_torch.models import encdec
 from repro_torch.models import registry as models
+from repro_torch.models.transformer import map_tree
 
-#: leaves that keep ``param_dtype`` when the weights are cast for serving:
-#: the reference's rmsnorm casts γ to f32, so a bf16 γ would change bits
-NORM_LEAVES = ("ln1", "ln2", "final_norm", "qnorm", "knorm")
+#: the norms' γ, which keep ``param_dtype`` when the weights are cast for
+#: serving: the reference's rmsnorm casts γ to f32, so a bf16 γ would
+#: change bits
+NORM_LEAVES = ("ln", "ln1", "ln2", "lnx", "final_norm", "enc_norm", "qnorm",
+               "knorm", "norm_g")
 
 
 def cast_for_serving(params: dict, cfg: ModelConfig) -> dict:
-    """Every weight cast to ``cfg.compute_dtype`` once, the norms' γ left
-    as they are. The model casts each weight to the compute type before
-    its product; after this the cast is a no-op instead of a pass over
-    every weight each step, and the bits are the same."""
+    """Every weight cast to ``cfg.compute_dtype`` once; the norms' γ and the
+    f32 leaves (``models.F32_LEAVES``: the MoE router, the SSM's
+    ``dt_bias``, ``a_log`` and ``d_skip``, which the reference reads in
+    f32) left as they are. The model casts each weight to the compute
+    type before its product; after this the cast is a no-op instead of a
+    pass over every weight each step, and the bits are the same."""
+    keep = NORM_LEAVES + models.F32_LEAVES
     cd = cfg.compute_dtype
-    return {name: t if name.rsplit(".", 1)[-1] in NORM_LEAVES else t.to(cd)
+    return {name: t if name.rsplit(".", 1)[-1] in keep else t.to(cd)
             for name, t in params.items()}
 
 
@@ -49,9 +60,9 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     """One decode step on one device, ``(params, tokens, cache) -> (logits,
     cache)``, under ``torch.inference_mode``. ``donate=True`` writes the
     cache in place and returns it; ``donate=False`` leaves the caller's
-    cache as it was and returns a new one. ``shape`` and ``cache_like``
-    shape the reference's partition specs; a ``mesh`` or ``plan`` raises
-    until the multi-device slice."""
+    cache, nested dicts included, as it was and returns a new one.
+    ``shape`` and ``cache_like`` shape the reference's partition specs; a
+    ``mesh`` or ``plan`` raises until the multi-device slice."""
     if mesh is not None or plan is not None:
         raise NotImplementedError(
             "make_serve_step runs on one device; meshes and sharding plans "
@@ -60,7 +71,7 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     @torch.inference_mode()
     def serve_step(params, tokens, cache):
         if not donate:
-            cache = {k: v.clone() for k, v in cache.items()}
+            cache = map_tree(torch.clone, cache)
         return models.decode_step(params, cfg, tokens, cache)
 
     return serve_step
@@ -98,7 +109,17 @@ def serve_loop(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 8,
     with torch.inference_mode():
         params = cast_for_serving({k: v.to(dev) for k, v in params.items()},
                                   cfg)
-        cache = models.init_cache(cfg, batch, max_len, device=dev)
+        if models.is_encdec(cfg):
+            # the stub frontend's frame embeddings, drawn on the device
+            # (the reference draws them from jax.random: other frames)
+            fd = cfg.frontend_dim or cfg.d_model
+            frames = torch.randn(
+                (batch, cfg.encoder_seq, fd), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(seed + 1))
+            cache = encdec.init_cache(cfg, batch, max_len, params=params,
+                                      frames=frames, device=dev)
+        else:
+            cache = models.init_cache(cfg, batch, max_len, device=dev)
         step_fn = make_serve_step(cfg, shape, cache_like=cache)
         prompt_t = torch.from_numpy(prompt).to(dev)
         generated = []

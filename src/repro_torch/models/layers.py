@@ -1,9 +1,8 @@
 """Shared layers of the port's decoder LM, on torch tensors.
 
-The dense-family subset of the reference's ``models/layers.py``: the
-initializers, RMSNorm, RoPE, dense causal attention with GQA, the
-attention and MLP blocks, the embedding, the LM head and the
-cross-entropy. Parameters are plain dicts of tensors under the
+The reference's ``models/layers.py``: the initializers, RMSNorm, RoPE,
+dense, KV-chunked and 2-D-tiled causal attention with GQA, the attention
+and MLP blocks, the embedding, the LM head and the cross-entropy. Parameters are plain dicts of tensors under the
 reference's names and layouts (``wq`` is ``(d, heads, head_dim)``), so a
 JAX parameter tree carries over element for element
 (:func:`repro_torch.convert.params_from_jax`).
@@ -18,11 +17,16 @@ taken in f32. RMSNorm runs through the hand-written kernel
 
 One-token decode runs against a ring-buffer KV cache
 (:func:`decode_attention_block`), with the grouped-query form of
-:func:`attention_dense` when ``cfg.decode_grouped_attn``. The KV-chunked
-online-softmax attention (``attention_chunked``) and the 2-D causal
-tiling (``attention_causal_2d``) of the reference serve sequences longer
-than ``cfg.attn_chunk``; they are not ported yet (ROADMAP queue 1, item
-3), and :func:`attention` raises there.
+:func:`attention_dense` when ``cfg.decode_grouped_attn``. Sequences longer
+than ``cfg.attn_chunk`` run the KV-chunked online-softmax attention
+(:func:`attention_chunked`), or with ``cfg.attn_causal_skip`` the 2-D
+causal tiling that skips fully masked key blocks
+(:func:`attention_causal_2d`); the reference's ``lax.scan`` over chunks is
+a Python loop here, so ``cfg.unroll_scans`` changes nothing. One
+difference from the reference: keys padded onto the last chunk are masked
+out here, also without a window (the reference gives them position
+``-(10**9)``, which only a window masks, so there they take part in the
+softmax with score 0); the chunked path equals :func:`attention_dense`.
 """
 from __future__ import annotations
 
@@ -175,16 +179,88 @@ def attention_dense(q, k, v, *, q_pos, k_pos, causal=True, window=0,
     return out.to(q.dtype)
 
 
+def attention_chunked(q, k, v, *, q_pos, k_pos, causal=True, window=0,
+                      chunk=2048):
+    """Online-softmax attention over KV chunks of ``chunk`` keys: peak
+    activation memory O(S·chunk) instead of O(S·T). The running max ``m``,
+    denominator ``l`` and weighted sum ``acc`` are f32; ``l`` is clamped
+    at 1e-30 before the divide; the probabilities are rounded to v's type
+    before the PV product, as in :func:`attention_dense`. A last chunk
+    padded to ``chunk`` keys masks its padding."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    valid = None
+    if t % chunk:
+        pad = chunk - t % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.cat([k_pos, torch.full((pad,), -(10 ** 9),
+                                             dtype=k_pos.dtype,
+                                             device=k_pos.device)])
+        valid = torch.arange(t + pad, device=k_pos.device) < t
+        t += pad
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    scale = 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    qf = q.to(f32)
+    m = torch.full((b, h, s), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=f32, device=q.device)
+    acc = torch.zeros((b, s, h, d), dtype=f32, device=q.device)
+    for lo in range(0, t, chunk):
+        hi = lo + chunk
+        k_i, v_i = k[:, lo:hi], v[:, lo:hi]
+        s_i = torch.einsum("bshd,bthd->bhst", qf, k_i.to(f32)) * scale
+        s_i = s_i + _mask_bias(
+            q_pos, k_pos[lo:hi], causal=causal, window=window,
+            k_valid=None if valid is None else valid[lo:hi])[None, None]
+        m_new = torch.maximum(m, torch.amax(s_i, dim=-1))
+        p = torch.exp(s_i - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha.transpose(1, 2)[..., None] + torch.einsum(
+            "bhst,bthd->bshd", p.to(v_i.dtype).to(f32), v_i.to(f32))
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def attention_causal_2d(q, k, v, *, positions, window=0, chunk=2048):
+    """2-D-tiled causal attention: query blocks × key blocks, skipping the
+    blocks that are fully masked (above the diagonal; with a window, also
+    those older than it). S must be a multiple of ``chunk`` (the dispatch
+    in :func:`attention` sees to it)."""
+    s = q.shape[1]
+    nq = s // chunk
+    outs = []
+    for i in range(nq):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        # the earliest key block this query block sees (a window: the block
+        # holding position i*chunk - window + 1)
+        j0 = max(0, (i * chunk - window + 1) // chunk) if window else 0
+        lo, hi = j0 * chunk, (i + 1) * chunk
+        args = (q[:, sl], k[:, lo:hi], v[:, lo:hi])
+        kw = dict(q_pos=positions[sl], k_pos=positions[lo:hi], causal=True,
+                  window=window)
+        outs.append(attention_chunked(*args, chunk=chunk, **kw)
+                    if hi - lo > chunk else attention_dense(*args, **kw))
+    return torch.cat(outs, dim=1)
+
+
 def attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, chunk=0,
               k_valid=None, causal_skip=False):
+    """The reference's dispatch: the 2-D causal tiling for full causal
+    self-attention longer than (and a multiple of) ``chunk`` under
+    ``causal_skip``; else the chunked path for keys longer than ``chunk``;
+    else the dense path."""
     full_self = causal and k_valid is None and q.shape[1] == k.shape[1]
     if (causal_skip and full_self and chunk and q.shape[1] > chunk
-            and q.shape[1] % chunk == 0) \
-            or (chunk and k.shape[1] > chunk and k_valid is None):
-        raise NotImplementedError(
-            f"sequence {k.shape[1]} is longer than attn_chunk {chunk}: "
-            f"attention_chunked and attention_causal_2d are not ported yet "
-            f"(ROADMAP queue 1, item 3)")
+            and q.shape[1] % chunk == 0):
+        return attention_causal_2d(q, k, v, positions=q_pos, window=window,
+                                   chunk=chunk)
+    if chunk and k.shape[1] > chunk and k_valid is None:
+        return attention_chunked(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                 causal=causal, window=window, chunk=chunk)
     return attention_dense(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
                            window=window, k_valid=k_valid)
 

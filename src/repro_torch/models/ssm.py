@@ -1,0 +1,322 @@
+"""State-space model blocks on torch tensors: Mamba-1 (selective scan) and
+Mamba-2 (SSD).
+
+The reference's ``models/ssm.py``, with its separate projections
+(``in_x``, ``in_z``, ...) and parameter names, so that its weights carry
+over leaf for leaf. ``dt_bias``, ``a_log`` and ``d_skip`` are f32 whatever
+``cfg.param_dtype`` (``F32_LEAVES``).
+
+* The causal depthwise conv is ``F.conv1d`` with ``groups=C`` on a
+  left-padded, channels-first view; the reference's ``(K, C)`` weight is
+  read as ``(C, 1, K)``.
+* Mamba-1's recurrence ``h_t = exp(dt_t·A)·h_{t-1} + dt_t·x_t·B_t`` runs
+  chunk by chunk as in the reference, but within a chunk as a loop over
+  its steps, where the reference combines the steps with an associative
+  scan (``lax.associative_scan`` has no torch counterpart). The products
+  and sums run in another order, so results agree to rounding (the tests
+  state the tolerance).
+* Mamba-2's SSD is the reference's quadratic-within-chunk,
+  linear-across-chunks form; its decay ``exp(cl_i - cl_j)`` may overflow
+  above the diagonal, and ``torch.where`` masks it as the reference's
+  ``jnp.where`` does.
+* Mamba-2's gated RMSNorm runs through :func:`layers.rmsnorm`, the rmsnorm
+  kernel on the card, at d = d_inner.
+
+Decode is a single-step state update against a cache of the SSM state
+(f32) and the conv's last K - 1 inputs (:func:`mamba_cache_specs`).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.layers import dense_init, rmsnorm
+
+#: leaves that stay f32 whatever ``cfg.param_dtype``
+F32_LEAVES = ("dt_bias", "a_log", "d_skip")
+
+_F32 = torch.float32
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    return math.ceil(cfg.d_model / 16)
+
+
+def d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm.expand * cfg.d_model
+
+
+def m2_heads(cfg: ModelConfig) -> int:
+    return d_inner(cfg) // cfg.ssm.head_dim
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv1d
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                  ) -> torch.Tensor:
+    """x: (B,S,C); w: (K,C) depthwise; left-padded causal conv."""
+    k, c = w.shape
+    xp = F.pad(x.transpose(1, 2), (k - 1, 0))
+    out = F.conv1d(xp, w.T.reshape(c, 1, k), groups=c)
+    return out.transpose(1, 2) + b
+
+
+def conv_step(cache: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token conv using a (B, K-1, C) history cache; returns the
+    new history and the output (B, C)."""
+    window = torch.cat([cache, x_t[:, None]], dim=1)             # (B,K,C)
+    out = torch.einsum("bkc,kc->bc", window, w) + b
+    return window[:, 1:], out
+
+
+def _init(gen: torch.Generator, shapes: dict, fan_in: dict,
+          dtype: torch.dtype, lead: tuple) -> dict:
+    """``dense_init`` for the leaves named in ``fan_in`` (their fan-in),
+    zeros for the others but the f32 leaves, which the caller sets."""
+    return {k: dense_init(gen, lead + s, fan_in[k], dtype) if k in fan_in
+            else torch.zeros(lead + s, dtype=dtype, device=gen.device)
+            for k, s in shapes.items() if k not in F32_LEAVES}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1
+# ---------------------------------------------------------------------------
+
+def mamba1_shapes(cfg: ModelConfig) -> dict:
+    d, di, ds, r, k = (cfg.d_model, d_inner(cfg), cfg.ssm.d_state,
+                       dt_rank(cfg), cfg.ssm.d_conv)
+    return {"in_x": (d, di), "in_z": (d, di), "conv_w": (k, di),
+            "conv_b": (di,), "x_proj": (di, r + 2 * ds), "dt_proj": (r, di),
+            "dt_bias": (di,), "a_log": (di, ds), "d_skip": (di,),
+            "out_proj": (di, d)}
+
+
+def mamba1_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                lead: tuple = ()) -> dict:
+    """The Mamba-1 weights; ``lead`` prepends axes (the layer stack)."""
+    d, di, ds, r, k = (cfg.d_model, d_inner(cfg), cfg.ssm.d_state,
+                       dt_rank(cfg), cfg.ssm.d_conv)
+    p = _init(gen, mamba1_shapes(cfg),
+              {"in_x": d, "in_z": d, "conv_w": k, "x_proj": di, "dt_proj": r,
+               "out_proj": di}, dtype, lead)
+    dev = gen.device
+    a = torch.log(torch.arange(1, ds + 1, dtype=_F32, device=dev))
+    p.update(dt_bias=torch.full(lead + (di,), -4.6, device=dev),  # softplus ~ 0.01
+             a_log=a.expand(lead + (di, ds)).clone(),
+             d_skip=torch.ones(lead + (di,), device=dev))
+    return p
+
+
+def mamba1_ssm(dt, bmat, cmat, xc, a, h0, chunk: int):
+    """Chunked selective scan.
+
+    dt, xc: (B,S,di); bmat, cmat: (B,S,ds); a: (di,ds) (negative);
+    h0: (B,di,ds). Returns y (B,S,di) f32 and h_last.
+    """
+    s = dt.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by ssm chunk {chunk}")
+    dt, bmat, cmat, xc = (t.to(_F32) for t in (dt, bmat, cmat, xc))
+    h, ys = h0, []
+    for lo in range(0, s, chunk):
+        sl = slice(lo, lo + chunk)
+        da = torch.exp(dt[:, sl, :, None] * a)                   # (B,C,di,ds)
+        db = (dt[:, sl] * xc[:, sl])[..., None] * bmat[:, sl, None, :]
+        hs = []
+        for i in range(da.shape[1]):
+            h = da[:, i] * h + db[:, i]
+            hs.append(h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1),
+                               cmat[:, sl]))
+    return torch.cat(ys, dim=1), h
+
+
+def mamba1_block(p: dict, x: torch.Tensor, cfg: ModelConfig, h0=None,
+                 conv_cache=None, single_step: bool = False):
+    """x: (B,S,D) full-sequence, or (B,1,D) with ``single_step``.
+
+    Returns (out (B,S,D), (h_last, conv_cache)).
+    """
+    cd = cfg.compute_dtype
+    ds, r = cfg.ssm.d_state, dt_rank(cfg)
+    b = x.shape[0]
+    if h0 is None:
+        h0 = torch.zeros((b, d_inner(cfg), ds), dtype=_F32, device=x.device)
+
+    x_in = torch.einsum("bsd,de->bse", x, p["in_x"].to(cd))
+    z = torch.einsum("bsd,de->bse", x, p["in_z"].to(cd))
+    if single_step:
+        conv_cache, xc_t = conv_step(conv_cache, x_in[:, 0],
+                                     p["conv_w"].to(cd), p["conv_b"].to(cd))
+        xc = F.silu(xc_t)[:, None]
+    else:
+        xc = F.silu(causal_conv1d(x_in, p["conv_w"].to(cd),
+                                  p["conv_b"].to(cd)))
+        conv_cache = None
+
+    proj = torch.einsum("bsd,de->bse", xc, p["x_proj"].to(cd))
+    dt_raw, bmat, cmat = torch.split(proj, [r, ds, ds], dim=-1)
+    dt = F.softplus(torch.einsum("bsr,rd->bsd", dt_raw, p["dt_proj"].to(cd))
+                    .to(_F32) + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+
+    if single_step:
+        da = torch.exp(dt[:, 0, :, None] * a)
+        db = (dt[:, 0] * xc[:, 0].to(_F32))[..., None] \
+            * bmat[:, 0, None, :].to(_F32)
+        h_last = da * h0 + db
+        y = torch.einsum("bdn,bn->bd", h_last,
+                         cmat[:, 0].to(_F32))[:, None]
+    else:
+        y, h_last = mamba1_ssm(dt, bmat, cmat, xc, a, h0, cfg.ssm.chunk)
+
+    y = y + xc.to(_F32) * p["d_skip"]
+    y = y.to(cd) * F.silu(z)
+    out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(cd))
+    return out, (h_last, conv_cache)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba2_shapes(cfg: ModelConfig) -> dict:
+    d, di, ds, k = cfg.d_model, d_inner(cfg), cfg.ssm.d_state, cfg.ssm.d_conv
+    h = m2_heads(cfg)
+    return {"in_x": (d, di), "in_z": (d, di), "in_b": (d, ds),
+            "in_c": (d, ds), "in_dt": (d, h), "conv_xw": (k, di),
+            "conv_xb": (di,), "conv_bw": (k, ds), "conv_bb": (ds,),
+            "conv_cw": (k, ds), "conv_cb": (ds,), "dt_bias": (h,),
+            "a_log": (h,), "d_skip": (h,), "norm_g": (di,),
+            "out_proj": (di, d)}
+
+
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                lead: tuple = ()) -> dict:
+    """The Mamba-2 weights; ``lead`` prepends axes (the layer stack)."""
+    d, di, k = cfg.d_model, d_inner(cfg), cfg.ssm.d_conv
+    h = m2_heads(cfg)
+    p = _init(gen, mamba2_shapes(cfg),
+              {"in_x": d, "in_z": d, "in_b": d, "in_c": d, "in_dt": d,
+               "conv_xw": k, "conv_bw": k, "conv_cw": k, "out_proj": di},
+              dtype, lead)
+    dev = gen.device
+    p.update(dt_bias=torch.full(lead + (h,), -4.6, device=dev),
+             a_log=torch.zeros(lead + (h,), device=dev),
+             d_skip=torch.ones(lead + (h,), device=dev),
+             norm_g=torch.ones(lead + (di,), dtype=dtype, device=dev))
+    return p
+
+
+def ssd_chunked(xh, dt, bmat, cmat, a_head, h0, chunk: int):
+    """Mamba-2 SSD: quadratic within a chunk, linear across chunks.
+
+    xh: (B,S,H,P); dt: (B,S,H) f32; bmat/cmat: (B,S,N); a_head: (H,) (<0);
+    h0: (B,H,P,N). Returns y (B,S,H,P) f32 and h_last.
+    """
+    s = xh.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by ssd chunk {chunk}")
+    xh, bmat, cmat = (t.to(_F32) for t in (xh, bmat, cmat))
+    log_a = dt * a_head                               # (B,S,H)  <= 0
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))[None, :, :, None]
+    zero = torch.zeros((), dtype=_F32, device=xh.device)
+    hstate, ys = h0.to(_F32), []
+    for lo in range(0, s, chunk):
+        sl = slice(lo, lo + chunk)
+        x_c, dt_c, b_c, c_c = xh[:, sl], dt[:, sl], bmat[:, sl], cmat[:, sl]
+        cl = torch.cumsum(log_a[:, sl], dim=1)        # (B,C,H) inclusive
+        # within the chunk: y_i += sum_{j<=i} exp(cl_i - cl_j) dt_j (C_i.B_j) x_j
+        g = torch.einsum("bin,bjn->bij", c_c, b_c)    # (B,C,C)
+        decay = torch.exp(cl[:, :, None, :] - cl[:, None, :, :])  # (B,C,C,H)
+        w = torch.where(mask, g[..., None] * decay, zero)
+        w = w * dt_c[:, None, :, :]                   # scale by dt_j
+        y = torch.einsum("bijh,bjhp->bihp", w, x_c)
+        # the carried state: exp(cl_i) * C_i . h0
+        y = y + torch.einsum("bin,bhpn,bih->bihp", c_c, hstate,
+                             torch.exp(cl))
+        # the next state: exp(cl_last - cl_j) dt_j x_j (x) B_j, summed over j
+        rev = torch.exp(cl[:, -1:, :] - cl)           # (B,C,H)
+        contrib = torch.einsum("bjh,bjhp,bjn->bhpn", rev * dt_c, x_c, b_c)
+        hstate = hstate * torch.exp(cl[:, -1])[..., None, None] + contrib
+        ys.append(y)
+    return torch.cat(ys, dim=1), hstate
+
+
+def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, h0=None,
+                 conv_cache=None, single_step: bool = False):
+    """Mamba-2 block. x: (B,S,D); conv_cache: dict(x=, b=, c=) histories.
+
+    Returns (out, (h_last, conv_cache)).
+    """
+    cd = cfg.compute_dtype
+    di_ = d_inner(cfg)
+    nh, hd = m2_heads(cfg), cfg.ssm.head_dim
+    b, s, _ = x.shape
+    if h0 is None:
+        h0 = torch.zeros((b, nh, hd, cfg.ssm.d_state), dtype=_F32,
+                         device=x.device)
+
+    proj = lambda name: torch.einsum("bsd,de->bse", x, p[name].to(cd))
+    z, xr, br, cr = proj("in_z"), proj("in_x"), proj("in_b"), proj("in_c")
+    dt_raw = torch.einsum("bsd,dh->bsh", x, p["in_dt"].to(cd))
+
+    convs = (("x", xr, "conv_xw", "conv_xb"), ("b", br, "conv_bw", "conv_bb"),
+             ("c", cr, "conv_cw", "conv_cb"))
+    if single_step:
+        new_cache, outs = {}, []
+        for key, v, w, bias in convs:
+            new_cache[key], o = conv_step(conv_cache[key], v[:, 0],
+                                          p[w].to(cd), p[bias].to(cd))
+            outs.append(F.silu(o)[:, None])
+        conv_cache = new_cache
+    else:
+        outs = [F.silu(causal_conv1d(v, p[w].to(cd), p[bias].to(cd)))
+                for _, v, w, bias in convs]
+        conv_cache = None
+    xr, br, cr = outs
+
+    xh = xr.reshape(b, s, nh, hd)
+    dt = F.softplus(dt_raw.to(_F32) + p["dt_bias"])               # (B,S,H)
+    a_head = -torch.exp(p["a_log"])
+
+    if single_step:
+        la = dt[:, 0] * a_head                                     # (B,H)
+        h_last = h0 * torch.exp(la)[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, 0], xh[:, 0].to(_F32),
+            br[:, 0].to(_F32))
+        y = torch.einsum("bhpn,bn->bhp", h_last,
+                         cr[:, 0].to(_F32))[:, None]
+    else:
+        y, h_last = ssd_chunked(xh, dt, br, cr, a_head, h0, cfg.ssm.chunk)
+
+    y = y + xh.to(_F32) * p["d_skip"][:, None]
+    y = y.reshape(b, s, di_).to(cd)
+    # gated RMSNorm (Mamba-2): norm(y * silu(z))
+    y = rmsnorm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
+    out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(cd))
+    return out, (h_last, conv_cache)
+
+
+def mamba_cache_specs(cfg: ModelConfig, batch: int,
+                      dtype: torch.dtype = torch.float32) -> dict:
+    """One layer's decode cache on the meta device (the caller prepends the
+    layer axis): the SSM state in f32, the conv histories in ``dtype``."""
+    k, di, ds = cfg.ssm.d_conv, d_inner(cfg), cfg.ssm.d_state
+    meta = lambda *shape, dt=dtype: torch.empty(shape, dtype=dt, device="meta")
+    if cfg.ssm.version == 1:
+        return {"h": meta(batch, di, ds, dt=_F32),
+                "conv": meta(batch, k - 1, di)}
+    return {"h": meta(batch, m2_heads(cfg), cfg.ssm.head_dim, ds, dt=_F32),
+            "conv_x": meta(batch, k - 1, di),
+            "conv_b": meta(batch, k - 1, ds),
+            "conv_c": meta(batch, k - 1, ds)}

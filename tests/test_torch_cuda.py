@@ -721,3 +721,139 @@ def test_decode_step_equals_plain_norms_on_card(arch, monkeypatch):
                                    out["plain"][1][key], rtol=1e-5,
                                    atol=1e-5)
     assert int(out["kernel"][1]["idx"]) == 3
+
+
+# ---------------------------------------------------------------------------
+# the model families, long context and the federated CNN (smoke width)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["whisper-tiny", "phi3.5-moe-42b-a6.6b", "dbrx-132b",
+                "falcon-mamba-7b", "chameleon-34b", "zamba2-2.7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_decode_equals_forward_on_card(arch):
+    """12 teacher-forced decode steps at f32 on the card against the full
+    forward (5e-3; the MoE at capacity_factor 8.0), the rmsnorm kernel's
+    launches a step equal to the config's count of norms."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec
+    from repro_torch.models import registry as models
+    cfg = dataclasses.replace(get_arch(arch).smoke,
+                              compute_dtype=torch.float32)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = models.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=gen, device="cuda")
+    batch = {"tokens": toks}
+    with torch.inference_mode():
+        if models.is_encdec(cfg):
+            batch["frames"] = torch.randn(
+                (2, cfg.encoder_seq, cfg.frontend_dim or cfg.d_model),
+                generator=gen, device="cuda")
+            cache = encdec.init_cache(cfg, 2, 12, params=params,
+                                      frames=batch["frames"],
+                                      dtype=torch.float32, device="cuda")
+        else:
+            cache = models.init_cache(cfg, 2, 12, dtype=torch.float32,
+                                      device="cuda")
+        full = models.forward(params, cfg, batch)
+        outs, per_step = [], []
+        for i in range(12):
+            before = rn.LAUNCHES
+            lg, cache = models.decode_step(params, cfg, toks[:, i:i + 1],
+                                           cache)
+            per_step.append(rn.LAUNCHES - before)
+            outs.append(lg[:, 0])
+    torch.testing.assert_close(torch.stack(outs, 1), full, rtol=5e-3,
+                               atol=5e-3)
+    assert per_step == [models.norms_per_decode_step(cfg)] * 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "h2o-danube-1.8b"])
+def test_long_context_paths_equal_dense_on_card(arch, monkeypatch):
+    """The chunked and 2-D causal paths against the dense forward at f32 on
+    the card (S = 64, chunk 16; 1e-4); the 2-D path runs in every
+    layer."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers
+    from repro_torch.models import registry as models
+    cfg = dataclasses.replace(get_arch(arch).smoke,
+                              compute_dtype=torch.float32, attn_chunk=0)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = models.init_params(gen, cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, 64), generator=gen,
+                                     device="cuda")}
+    with torch.inference_mode():
+        dense = models.forward(params, cfg, batch)
+        chunked = models.forward(params, dataclasses.replace(
+            cfg, attn_chunk=16), batch)
+        calls = []
+        tile = layers.attention_causal_2d
+        monkeypatch.setattr(layers, "attention_causal_2d",
+                            lambda *a, **kw: calls.append(1) or tile(*a, **kw))
+        tiled = models.forward(params, dataclasses.replace(
+            cfg, attn_chunk=16, attn_causal_skip=True), batch)
+    assert len(calls) == cfg.n_layers
+    torch.testing.assert_close(chunked, dense, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(tiled, dense, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_federated_cnn_rounds_on_card(monkeypatch):
+    """Two rounds of the federated CNN (the reference's e2e config) on the
+    card under each topology, batched engine: the same model (1e-4 /
+    1e-5), fused-SGD launched once a leaf a local step, the fold kernel
+    launched. The convolutions run in f32 with cuDNN's deterministic
+    algorithms, so that the three runs train the same client deltas and
+    only the aggregation differs, as on the CPU."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core.fedavg import apply_delta, local_sgd_update, \
+        model_delta
+    from repro_torch.core.sharding import flatten, unflatten
+    from repro_torch.data import SyntheticVision
+    from repro_torch.models import cnn
+    from repro_torch.serverless import LambdaRuntime
+    from repro_torch.store import ObjectStore
+    cfg = cnn.CNNConfig(n_classes=4, channels=(8, 16), blocks_per_stage=1,
+                        img_size=8)
+    data = SyntheticVision(n_classes=4, img_size=8, seed=0, noise=0.4)
+    finals = []
+    for topology in ("gradssharding", "lambda_fl", "lifl"):
+        params = cnn.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg)
+        store, rt = ObjectStore(), LambdaRuntime()
+        sgd_before, fold_before = sgd.LAUNCHES, fs.LAUNCHES
+        for rnd in range(2):
+            flats, spec = [], None
+            for c in range(4):
+                local = {k: v.clone() for k, v in params.items()}
+                vel = None
+                for step in range(4):
+                    batch = data.batch(c, rnd * 10 + step, 32, device="cuda")
+                    local, vel, _ = local_sgd_update(
+                        lambda p, b: cnn.loss_fn(p, cfg, b), local, batch,
+                        lr=0.05, momentum=0.9, velocity=vel)
+                flat, spec = flatten(model_delta(params, local))
+                flats.append(flat)
+            r = agg.aggregate_round(topology, flats, rnd=rnd, store=store,
+                                    runtime=rt, n_shards=4, codec="identity",
+                                    engine="batched")
+            params = apply_delta(params, unflatten(r.avg_flat, spec))
+        torch.cuda.synchronize()
+        assert sgd.LAUNCHES - sgd_before == len(params) * 4 * 4 * 2
+        assert fs.LAUNCHES > fold_before
+        finals.append(flatten(params)[0])
+    for other in finals[1:]:
+        torch.testing.assert_close(other, finals[0], rtol=1e-4, atol=1e-5)

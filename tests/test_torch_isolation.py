@@ -49,6 +49,12 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
         "import repro_torch.launch.serve, repro_torch.launch.hostenv\n"
         "import repro_torch.checkpoint.manager\n"
         "import repro_torch.checkpoint.reshard, repro_torch.data.partition\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
+        "import repro_torch.models.encdec, repro_torch.models.cnn\n"
+        "import repro_torch.configs.whisper_tiny, repro_torch.configs.dbrx\n"
+        "import repro_torch.configs.phi35_moe, repro_torch.configs.zamba2\n"
+        "import repro_torch.configs.falcon_mamba\n"
+        "import repro_torch.configs.chameleon\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

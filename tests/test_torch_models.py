@@ -245,16 +245,30 @@ def test_remat_computes_the_same_loss_and_gradients():
 
 
 def test_unported_paths_raise():
+    """The paths that raised until the families and long context were
+    ported now compute the reference's results: the SSM's parameter count,
+    attention longer than its chunk (the chunked path, GQA), and the
+    hybrid architecture resolves."""
     _, cfg = _cfgs("f32")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        models.param_count(dataclasses.replace(cfg, family="ssm"))
-    q = torch.zeros(1, 8, 4, 16)
-    k = torch.zeros(1, 8, 2, 16)
-    pos = torch.arange(8)
-    with pytest.raises(NotImplementedError, match="attention_chunked"):
-        layers.attention(q, k, k, q_pos=pos, k_pos=pos, chunk=4)
-    with pytest.raises(KeyError, match="queue 1, item 3"):
-        get_arch("zamba2-2.7b")
+    ssm_ref = ref_get_arch("falcon-mamba-7b")
+    assert models.param_count(get_arch("falcon-mamba-7b").model) == \
+        ref_models.param_count(ssm_ref.model) == 7_272_665_088
+    assert models.param_count(get_arch("falcon-mamba-7b").smoke) == \
+        ref_models.param_count(ssm_ref.smoke)
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((1, 8, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((1, 8, 2, 16)).astype(np.float32)
+    pos = np.arange(8)
+    want = ref_layers.attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(k), q_pos=jnp.asarray(pos),
+                                k_pos=jnp.asarray(pos), chunk=4)
+    got = layers.attention(_t(q), _t(k), _t(k), q_pos=torch.from_numpy(pos),
+                           k_pos=torch.from_numpy(pos), chunk=4)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
+    spec = get_arch("zamba2-2.7b")
+    assert spec.model == convert.model_config_from_jax(
+        ref_get_arch("zamba2-2.7b").model)
+    assert spec.model.family == "hybrid" and cfg.family == "dense"
 
 
 def test_param_count_of_tinyllama():
@@ -265,8 +279,7 @@ def test_param_count_of_tinyllama():
 
 
 def test_model_config_equals_reference_field_by_field():
-    assert arch_ids() == [s.arch_id for s in ref_ASSIGNED
-                          if s.model.family == "dense"]
+    assert arch_ids() == [s.arch_id for s in ref_ASSIGNED]
     ref_spec, spec = ref_get_arch(ARCH), get_arch(ARCH)
     ref_fields = [f.name for f in dataclasses.fields(type(ref_spec.model))]
     assert [f.name for f in dataclasses.fields(ModelConfig)] == ref_fields

@@ -213,6 +213,60 @@ def test_serve_loop_generates_the_reference_tokens(arch):
     assert got["tokens_per_s"] == pytest.approx(4 * 23 / got["wall_s"])
 
 
+FAMILIES = ["phi3.5-moe-42b-a6.6b", "dbrx-132b", "falcon-mamba-7b",
+            "chameleon-34b", "zamba2-2.7b"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_loop_generates_the_reference_tokens_every_family(arch):
+    """MoE, SSM, VLM and hybrid: the port's serve loop on the reference's
+    weights greedy-decodes the reference loop's tokens (f32)."""
+    ref_cfg = dataclasses.replace(ref_get_arch(arch).smoke,
+                                  compute_dtype=jnp.float32)
+    kw = dict(batch=2, prompt_len=4, max_new_tokens=6, max_len=16, seed=0)
+    want = ref_serve.serve_loop(ref_cfg, **kw)
+    params = convert.params_from_jax(jax.tree.map(
+        np.asarray, ref_models.init_params(jax.random.PRNGKey(0), ref_cfg)))
+    got = serve.serve_loop(convert.model_config_from_jax(ref_cfg),
+                           device="cpu", params=params, **kw)
+    assert got["generated"].shape == (2, 6)
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+
+
+def test_serve_loop_encoder_decoder_runs_the_encoder_once():
+    """whisper: the cache's cross-attention K/V come from seeded frames
+    through the encoder, and the loop's tokens are a greedy decode of the
+    reference's decode step against the same frames and weights (f32)."""
+    from repro.models import encdec as ref_encdec
+    ref_cfg = dataclasses.replace(ref_get_arch("whisper-tiny").smoke,
+                                  compute_dtype=jnp.float32)
+    cfg = convert.model_config_from_jax(ref_cfg)
+    ref_params = ref_models.init_params(jax.random.PRNGKey(0), ref_cfg)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, ref_params))
+    b, prompt_len, new, max_len = 2, 3, 5, 12
+    got = serve.serve_loop(cfg, batch=b, prompt_len=prompt_len,
+                           max_new_tokens=new, max_len=max_len, seed=7,
+                           device="cpu", params=params)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.frontend_dim),
+                         generator=torch.Generator().manual_seed(8))
+    cache = ref_encdec.init_cache(ref_cfg, b, max_len, params=ref_params,
+                                  frames=jnp.asarray(frames.numpy()))
+    assert bool(jnp.any(cache["xk"] != 0))
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab,
+                                               (b, prompt_len))
+    tok, out = jnp.asarray(prompt[:, :1], jnp.int32), []
+    for t in range(prompt_len + new - 1):
+        logits, cache = ref_models.decode_step(ref_params, ref_cfg, tok,
+                                               cache)
+        if t + 1 < prompt_len:
+            tok = jnp.asarray(prompt[:, t + 1:t + 2], jnp.int32)
+        else:
+            tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(
+                jnp.int32)
+            out.append(np.asarray(tok))
+    np.testing.assert_array_equal(got["generated"], np.concatenate(out, 1))
+
+
 def test_serve_loop_draws_its_own_weights_and_samples_from_a_generator():
     cfg = get_arch("tinyllama-1.1b").smoke
     kw = dict(batch=2, prompt_len=3, max_new_tokens=4, max_len=8,
@@ -255,6 +309,50 @@ def test_cast_for_serving_keeps_norms_and_bits():
     assert torch.equal(a, b)
 
 
+#: the type in which the reference's ops read each leaf: the norms' γ in
+#: f32 (its rmsnorm casts γ to f32), the MoE router in f32 (an f32
+#: einsum), the SSM's dt_bias, a_log and d_skip in f32 (added to, or
+#: exponentiated in, f32); every other weight in the compute type (each op
+#: casts it first)
+F32_READS = {"ln", "ln1", "ln2", "lnx", "final_norm", "enc_norm", "qnorm",
+             "knorm", "norm_g", "router", "dt_bias", "a_log", "d_skip"}
+
+
+@pytest.mark.parametrize("arch", [s.arch_id for s in ref_ASSIGNED])
+def test_serving_weights_have_the_types_the_reference_reads(arch):
+    """bf16 serving: every leaf of ``cast_for_serving`` in the type the
+    reference's op reads it in, and a decode step on the cast weights
+    equal bit for bit to one on the f32 weights, with every norm and f32
+    leaf perturbed so that a bf16 rounding of any of them would show."""
+    cfg = get_arch(arch).smoke
+    gen = torch.Generator().manual_seed(4)
+    params = {k: v + 0.01 * torch.randn(v.shape, generator=gen)
+              for k, v in models.init_params(gen, cfg).items()}
+    cast = serve.cast_for_serving(params, cfg)
+    leaves = {name.rsplit(".", 1)[-1] for name in params}
+    for name, t in cast.items():
+        want = torch.float32 if name.rsplit(".", 1)[-1] in F32_READS \
+            else torch.bfloat16
+        assert t.dtype == want, name
+    if cfg.moe is not None:
+        assert "router" in leaves
+    if cfg.ssm is not None:
+        assert {"dt_bias", "a_log", "d_skip"} <= leaves
+        assert ("norm_g" in leaves) == (cfg.ssm.version == 2)
+    toks = torch.from_numpy(_tokens(cfg.vocab, 2, 1, seed=0))
+    outs = []
+    for p in (params, cast):
+        if models.is_encdec(cfg):
+            from repro_torch.models import encdec
+            frames = torch.randn((2, cfg.encoder_seq, cfg.frontend_dim),
+                                 generator=torch.Generator().manual_seed(1))
+            cache = encdec.init_cache(cfg, 2, 4, params=p, frames=frames)
+        else:
+            cache = models.init_cache(cfg, 2, 4)
+        outs.append(models.decode_step(p, cfg, toks, cache)[0])
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_make_serve_step_donates_or_copies_the_cache():
     cfg = _f32(get_arch("tinyllama-1.1b").smoke)
     shape = config.ShapeConfig("serve", seq_len=4, global_batch=2,
@@ -275,6 +373,34 @@ def test_make_serve_step_donates_or_copies_the_cache():
         serve.make_serve_step(cfg, shape, mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         serve.make_serve_step(cfg, shape, plan=object())
+
+
+def test_make_serve_step_copies_a_nested_ssm_cache():
+    """donate=False with a Mamba cache (nested dicts): the caller's state
+    and conv histories stay as they were; the step's result equals the
+    donated step's."""
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        cfg = _f32(get_arch(arch).smoke)
+        shape = config.ShapeConfig("serve", seq_len=4, global_batch=2,
+                                   kind="decode")
+        params = models.init_params(torch.Generator().manual_seed(0), cfg)
+        tok = torch.from_numpy(_tokens(cfg.vocab, 2, 1, seed=1))
+        cache = models.init_cache(cfg, 2, 4, dtype=torch.float32)
+        donate = serve.make_serve_step(cfg, shape, cache_like=cache)
+        donate(params, tok, cache)              # a state that is not zero
+        before = {k: v.clone() for k, v in cache["mamba"].items()}
+        keep = serve.make_serve_step(cfg, shape, cache_like=cache,
+                                     donate=False)
+        lg_keep, new = keep(params, tok, cache)
+        assert int(cache["idx"]) == 1 and int(new["idx"]) == 2
+        for k, v in cache["mamba"].items():
+            assert torch.equal(v, before[k]), (arch, k)
+            assert new["mamba"][k] is not v
+        assert not torch.equal(new["mamba"]["h"], before["h"])
+        lg_donate, same = donate(params, tok, cache)
+        assert same is cache and torch.equal(lg_keep, lg_donate)
+        for k, v in cache["mamba"].items():
+            assert torch.equal(v, new["mamba"][k]), (arch, k)
 
 
 def test_serve_main_serves_the_smoke_config_on_the_cpu(capsys):
@@ -383,25 +509,47 @@ def test_new_configs_equal_reference_field_by_field(arch):
 
 
 def test_registry_is_the_reference_dense_subset():
-    assert arch_ids() == [s.arch_id for s in ref_ASSIGNED
-                          if s.model.family == "dense"]
+    """The registry equals the reference's: all ten assigned architectures
+    in its order, and GPT-2 Large in ``REGISTRY`` only."""
+    assert arch_ids() == [s.arch_id for s in ref_ASSIGNED]
     assert [s.arch_id for s in ASSIGNED] == arch_ids()
-    assert arch_ids(assigned_only=False) == sorted(DENSE) == sorted(REGISTRY)
+    assert arch_ids(assigned_only=False) == sorted(REGISTRY) == \
+        sorted(arch_ids() + ["gpt2-large"])
     assert "gpt2-large" not in arch_ids()
+    for arch in arch_ids(assigned_only=False):
+        ref_spec, spec = ref_get_arch(arch), get_arch(arch)
+        assert spec.model == convert.model_config_from_jax(ref_spec.model)
+        assert spec.smoke == convert.model_config_from_jax(ref_spec.smoke)
     assert get_arch("h2o-danube-1.8b").smoke.sliding_window == 8
     assert get_arch("qwen2.5-14b").smoke.qkv_bias
     assert get_arch("qwen3-32b").model.head_dim == 128
     assert not get_arch("gpt2-large").model.gated_mlp
-    for non_dense in ("zamba2-2.7b", "whisper-tiny", "dbrx-132b",
-                      "chameleon-34b"):
-        with pytest.raises(KeyError, match="queue 1, item 3"):
-            get_arch(non_dense)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
 
 
 def test_non_dense_decode_raises():
-    cfg = dataclasses.replace(get_arch("tinyllama-1.1b").smoke,
-                              family="hybrid")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        models.cache_specs(cfg, 1, 4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        models.input_specs(cfg, config.LM_SHAPES[0])
+    """The hybrid family's cache and decode inputs equal the reference's:
+    one K/V ring a group of ``attn_every`` layers and the nested Mamba-2
+    state of every layer."""
+    for width in ("smoke", "model"):
+        ref_cfg = getattr(ref_get_arch("zamba2-2.7b"), width)
+        cfg = getattr(get_arch("zamba2-2.7b"), width)
+        assert cfg.family == "hybrid"
+        got = models.cache_specs(cfg, 2, 64)
+        assert sorted(got["mamba"]) == ["conv_b", "conv_c", "conv_x", "h"]
+        flat = {"idx": got["idx"], "k": got["k"], "v": got["v"],
+                **{f"mamba.{k}": t for k, t in got["mamba"].items()}}
+        assert _meta(flat) == _sds(ref_models.cache_specs(ref_cfg, 2, 64))
+        assert got["k"].shape[0] == cfg.n_layers // cfg.attn_every
+        for ref_shape, shape in zip(ref_config.LM_SHAPES, config.LM_SHAPES):
+            ins = models.input_specs(cfg, shape)
+            ref_ins = ref_models.input_specs(ref_cfg, ref_shape)
+            assert sorted(ins) == sorted(ref_ins)
+            if "cache" in ins:
+                cache = ins.pop("cache")
+                flat = {k: t for k, t in cache.items() if k != "mamba"}
+                flat.update({f"mamba.{k}": t
+                             for k, t in cache["mamba"].items()})
+                assert _meta(flat) == _sds(ref_ins.pop("cache"))
+            assert _meta(ins) == _sds(ref_ins)
