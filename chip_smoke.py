@@ -149,7 +149,29 @@ Phases, each fatal on failure:
    (rtol 1e-4, atol 1e-5) and equal the same rounds on the CPU, 6
    GradsSharding rounds end above 0.5 accuracy, fused-SGD launches once a
    leaf a local step and the fold kernel folds; then one round at the
-   default ``CNNConfig()`` width, its client and aggregation walls.
+   default ``CNNConfig()`` width, its client and aggregation walls;
+16. the single-program trainer (``repro_torch.launch.train``) at full
+   width, ``tinyllama-1.1b`` with f32 parameters, batch 8, sequence 128
+   (the reference trainer's defaults), on a one-rank NCCL group and a
+   (1, 1) ("data", "model") mesh: the rmsnorm kernel at the trainer's
+   rows (1,024 × 2,048 bf16, f32 γ) against its plain version; one step
+   of each plan (``none``,
+   ``zero1``, ``zero3``) from the same parameters and batch, losses within
+   1e-5 and parameters within rtol 5e-4, atol 1e-4 of ``none``, 45 rmsnorm
+   launches a step, each plan's step host wall (median of 3), peak device
+   memory and profiled device-busy share; zero1's AdamW shard update by
+   CUDA events beside its bytes bound (7 f32 of |θ|); the shard_map step at momentum 0
+   within rtol 2e-4, atol 2e-5 of a single-device SGD step, and with
+   qsgd8, its fused-SGD, quantize and dequantize calls at 1.1 B elements
+   each held bit for bit against the plain versions; ``train_loop`` for 4
+   steps at full width (finite losses that fall at least once) and the
+   reference's restart test at the smoke config (a full-width checkpoint
+   is ~13 GB of disk); a VGG-16 GradsSharding round on the ``host_mesh``
+   engine (one card: the fold kernel's no-divide form) bit for bit the
+   streaming round; ``phi3.5-moe-42b-a6.6b`` at full width, 2 layers, f32,
+   its local MoE dispatch under the mesh within 2e-4 of the global one.
+   The phase's launch counts are set to 0 at its start and must all grow;
+   the forwards the path is compared with do not count.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -159,6 +181,7 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -2549,6 +2572,550 @@ def phase_federated_cnn(fs, sgd, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the single-program trainer, the host_mesh engine, MoE local
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=8, seq=128)   # the reference trainer's main() defaults
+TRAIN_LOOP_STEPS = 4
+PLAN_TIMED_STEPS = 3             # timed steps a plan, after the checked one
+SHARDMAP_LR = 0.1                # the reference's shard_map test step
+# zero1's AdamW shard update reads g, μ, ν, p and writes μ, ν, p: 7 f32
+ADAMW_BYTES_PER_ELEM = 7 * 4
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 2
+# the reference's tolerances: across plans (loss, then parameters), and
+# the shard_map step against a single-device step
+PLAN_LOSS_ATOL, PLAN_RTOL, PLAN_ATOL = 1e-5, 5e-4, 1e-4
+SINGLE_RTOL, SINGLE_ATOL = 2e-4, 2e-5
+
+# The helpers below hold the trainer to its checks here and in
+# tools/multi_card.py (several cards), which imports them.
+
+
+@contextlib.contextmanager
+def uncounted(*modules):
+    """Launches inside are a comparison's, not the path's: each module's
+    ``LAUNCHES`` is put back as it was."""
+    before = [m.LAUNCHES for m in modules]
+    try:
+        yield
+    finally:
+        for m, n in zip(modules, before):
+            m.LAUNCHES = n
+
+
+class HeldAgainstPlain:
+    """Wraps the kernel wrappers that the shard_map step calls, for one
+    step: each call goes to the kernel as before (its launch is the main
+    path's), and what the plain version needs to redo it is kept: clones
+    of the in-place fused-SGD's p and v, references to every other input
+    and output. ``check()`` runs the plain versions after the step, when
+    its memory is free, and holds the kernels' results bit for bit."""
+
+    def __init__(self, sgd, q, where: str = "16"):
+        self.sgd, self.q, self.where = sgd, q, where
+        self.calls = {"fused_sgd": [], "quantize": [], "dequantize": []}
+        self.saved = (sgd.fused_sgd, q.quantize, q.dequantize)
+
+    def __enter__(self):
+        kernel_sgd, kernel_q, kernel_dq = self.saved
+
+        def fused_sgd(p, g, v, lr, momentum=0.9):
+            before = (p.clone(), v.clone())
+            kernel_sgd(p, g, v, lr, momentum)
+            self.calls["fused_sgd"].append((before, g, lr, momentum, p, v))
+            return p, v
+
+        def quantize(x):
+            codes, scales = kernel_q(x)
+            self.calls["quantize"].append((x, codes, scales))
+            return codes, scales
+
+        def dequantize(codes, scales, start=0, stop=None):
+            out = kernel_dq(codes, scales, start, stop)
+            self.calls["dequantize"].append((codes, scales, start, stop, out))
+            return out
+
+        self.sgd.fused_sgd, self.q.quantize, self.q.dequantize = \
+            fused_sgd, quantize, dequantize
+        return self
+
+    def __exit__(self, *exc):
+        self.sgd.fused_sgd, self.q.quantize, self.q.dequantize = self.saved
+
+    def check(self) -> dict:
+        """Max abs err of each kernel against its plain version (0.0: the
+        bits agree; anything else fails)."""
+        import torch
+        errs = {}
+        for (p0, v0), g, lr, mu, p, v in self.calls.pop("fused_sgd"):
+            self.sgd.fused_sgd_plain(p0, g, v0, lr, mu)
+            if not (bits_equal(p0, p) and bits_equal(v0, v)):
+                fail(f"{self.where}: fused_sgd at {p.numel():,} elements != "
+                     f"its plain version (max abs err "
+                     f"{float((p0 - p).abs().max())})")
+            errs["fused_sgd"] = 0.0
+            del p0, v0
+        for x, codes, scales in self.calls.pop("quantize"):
+            pc, ps = self.q.quantize_plain(x)
+            if not (torch.equal(pc, codes) and bits_equal(ps, scales)):
+                fail(f"{self.where}: quantize at {x.numel():,} elements != "
+                     f"its plain version")
+            errs["quantize"] = 0.0
+            del pc, ps
+        for codes, scales, start, stop, out in self.calls.pop("dequantize"):
+            plain = self.q.dequantize_plain(codes, scales, start, stop)
+            if not bits_equal(plain, out):
+                fail(f"{self.where}: dequantize at {out.numel():,} elements "
+                     f"!= its plain version")
+            errs["dequantize"] = 0.0
+            del plain
+        torch.cuda.empty_cache()
+        return errs
+
+
+def max_rel(a, b, rtol: float, atol: float) -> tuple:
+    """(max abs err, within ``|a - b| <= atol + rtol·|b|`` everywhere),
+    over flat f32 vectors, in chunks."""
+    err, ok = 0.0, True
+    for lo in range(0, a.numel(), 1 << 27):
+        da, db = a[lo:lo + (1 << 27)], b[lo:lo + (1 << 27)]
+        diff = (da - db).abs()
+        err = max(err, float(diff.max()))
+        ok = ok and bool((diff <= atol + rtol * db.abs()).all())
+    return err, ok
+
+
+def flat_params(params):
+    from repro_torch.core.sharding import flatten
+    return flatten(params)[0]
+
+
+def plan_step(T, mesh, cfg, shape, opt, gs, params, batch, base,
+              where: str = "16"):
+    """One checked step of plan ``gs`` from ``params`` on ``batch``:
+    ``(step, p_in, state, row, flat)``, the step and its placed inputs
+    kept for timing, ``flat`` the new parameters gathered whole. Fails on
+    a non-finite loss or parameters and, given ``base`` (the ``none``
+    plan's ``(flat, loss)``), beyond the tolerances across plans."""
+    import torch
+    from repro_torch.config import ShardingPlan
+    plan = ShardingPlan(grad_sharding=gs)
+    step = T.jit_train_step(cfg, shape, mesh, plan, opt, None, donate=False)
+    p_in, state = T.place_state(cfg, mesh, plan, params, opt.init(params))
+    new, new_state, m = step(p_in, state, batch)
+    flat = flat_params(T.gather_state(cfg, mesh, plan, new, new_state)[0])
+    del new, new_state
+    loss = float(m["loss"])
+    if not math.isfinite(loss) or not bool(torch.isfinite(flat).all()):
+        fail(f"{where}: the {gs} step gave a non-finite loss or parameters")
+    row = {"loss": loss, "grad_norm": float(m["grad_norm"])}
+    if base is not None:
+        err, ok = max_rel(flat, base[0], PLAN_RTOL, PLAN_ATOL)
+        row["max_abs_err_vs_none"] = err
+        if abs(loss - base[1]) > PLAN_LOSS_ATOL or not ok:
+            fail(f"{where}: the {gs} plan != none (loss {loss} vs "
+                 f"{base[1]}; params max abs err {err}) beyond "
+                 f"{PLAN_LOSS_ATOL} / rtol {PLAN_RTOL}, atol {PLAN_ATOL}")
+    return step, p_in, state, row, flat
+
+
+def held_to_single_step(T, cfg, params, batch, new_flat, loss, lr,
+                        where: str = "16") -> float:
+    """The shard_map step's new parameters (``new_flat``) and ``loss``
+    against a single-device SGD step at ``lr`` from ``params`` on the
+    whole ``batch``: its max abs err; fails beyond rtol 2e-4 / atol 2e-5
+    (the loss: 1e-5 of it)."""
+    from repro_torch import optim
+    ref, _, ref_m = T.make_train_step(cfg, optim.sgd(lr))(params, (),
+                                                          batch)
+    ref, ref_loss = flat_params(ref), float(ref_m["loss"])
+    err, ok = max_rel(new_flat, ref, SINGLE_RTOL, SINGLE_ATOL)
+    if not ok or abs(float(loss) - ref_loss) > 1e-5 * abs(ref_loss):
+        fail(f"{where}: the shard_map step != a single-device SGD step "
+             f"beyond rtol {SINGLE_RTOL}, atol {SINGLE_ATOL} (max abs err "
+             f"{err}; loss {float(loss)} vs {ref_loss})")
+    return err
+
+
+def host_mesh_vs_streaming(fs, FederatedSession, grads, host_mesh: int,
+                           device: str, rounds: int = 1,
+                           warm_up: bool = False, where: str = "16"):
+    """GradsSharding rounds (M = N_SHARDS) over ``grads``, on the
+    streaming engine and on ``host_mesh`` fold devices: each engine's
+    host walls (ms) of ``rounds`` rounds, after an untimed one with
+    ``warm_up``, and the fold launches of its last round. Fails unless
+    the host_mesh mean is the streaming one bit for bit."""
+    import torch
+    from repro_torch.api import SessionConfig
+    out, res = {}, {}
+    for engine, hm in (("streaming", None), ("host_mesh", host_mesh)):
+        session = FederatedSession(SessionConfig(
+            topology="gradssharding", n_shards=N_SHARDS, engine=engine,
+            host_mesh=hm, device=device))
+        if warm_up:
+            session.round(grads)
+        walls = []
+        for _ in range(rounds):
+            before = fs.LAUNCHES
+            t0 = time.perf_counter()
+            res[engine] = session.round(grads)
+            if device == "cuda":
+                for i in range(torch.cuda.device_count()):
+                    torch.cuda.synchronize(i)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[f"{engine}_wall_ms"] = walls
+        out[f"{engine}_fold_launches"] = fs.LAUNCHES - before
+    if not bits_equal(res["host_mesh"].avg_flat, res["streaming"].avg_flat):
+        fail(f"{where}: the host_mesh round != the streaming round")
+    return out
+
+
+def check_trainer_norm(rn, layers, cfg, params, batch) -> float:
+    """The rmsnorm kernel at the trainer's rows (layer 0's ln1 input,
+    batch × seq rows in the compute dtype, γ as stored) against its plain
+    version: within one bf16 ulp (f32: rtol 1e-5, atol 1e-6), rstd within
+    1e-5; its max abs err."""
+    import torch
+    x = layers.embed_tokens(params["embed"], batch["tokens"],
+                            cfg.compute_dtype).reshape(-1, cfg.d_model)
+    gamma = params["layers.ln1"][0]
+    out, rstd = rn.rmsnorm(x, gamma, cfg.norm_eps)
+    want, want_rstd = rn.rmsnorm_plain(x, gamma, cfg.norm_eps)
+    torch.cuda.synchronize()
+    label = f"{tuple(x.shape)} {x.dtype}, gamma {gamma.dtype}"
+    if out.dtype != x.dtype or out.shape != x.shape or not bool(
+            torch.isfinite(want).all() and torch.isfinite(out).all()):
+        fail(f"16: rmsnorm at the trainer's rows {label}: a non-finite "
+             f"value or {out.dtype} {tuple(out.shape)}")
+    diff = (out.float() - want.float()).abs()
+    if x.dtype == torch.float32:
+        ok = bool((diff <= 1e-6 + 1e-5 * want.float().abs()).all())
+    else:
+        ok = bf16_ulps(out, want) <= 1
+    ok = ok and bool(((rstd - want_rstd).abs()
+                      <= 1e-5 * want_rstd.abs()).all())
+    err = float(diff.max())
+    if not ok:
+        fail(f"16: rmsnorm at the trainer's rows {label} != plain beyond "
+             f"the tolerance (max abs err {err})")
+    print(f"[16] rmsnorm at the trainer's rows {label}: == plain within "
+          f"the tolerance (max abs err {err:.3g})")
+    return err
+
+
+def _plan_steps(T, mesh, cfg, params, batch, rn, card):
+    """16 (a): one step of each plan from the same parameters and batch,
+    held against ``none`` (losses within 1e-5, parameters within rtol 5e-4
+    / atol 1e-4), each with 45 rmsnorm launches; then timed steps (the
+    median host wall, peak device memory) and a profiled one (device busy
+    share)."""
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.optim import adamw
+    shape = ShapeConfig("train", seq_len=TRAIN["seq"],
+                        global_batch=TRAIN["batch"], kind="train")
+    opt = adamw(3e-4, grad_clip_norm=1.0)
+    rows, base = {}, None
+    for gs in T.PLANS:
+        norms = rn.LAUNCHES
+        step, p_in, state, row, flat = plan_step(T, mesh, cfg, shape, opt,
+                                                 gs, params, batch, base)
+        norms = rn.LAUNCHES - norms
+        if norms != NORMS_PER_FORWARD:
+            fail(f"16: a {gs} step launched rmsnorm {norms} times, "
+                 f"expected {NORMS_PER_FORWARD}")
+        row["rmsnorm_launches"] = norms
+        loss = row["loss"]
+        if base is None:
+            base = (flat, loss)
+        del flat
+        # the cache stays warm: a timed step allocates no new blocks
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(PLAN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            out = step(p_in, state, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            del out
+        row["step_walls_ms"] = walls
+        row["step_wall_ms"] = statistics.median(walls)
+        row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        kernels, _, wall_ms = profiled_step(lambda: step(p_in, state, batch))
+        if kernels:
+            busy = device_busy_ms(kernels)
+            row.update({"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+                        "busy_share": busy / wall_ms,
+                        "kernels": len(kernels)})
+        else:
+            row["busy_share"] = None
+        del p_in, state
+        torch.cuda.empty_cache()
+        rows[gs] = row
+        busy_txt = "profile: no device activity; not measured" \
+            if row["busy_share"] is None else (
+                f"profiled step {row['profiled_wall_ms']:.1f} ms, device "
+                f"busy {row['device_busy_ms']:.1f} ms "
+                f"({100 * row['busy_share']:.1f}%)")
+        print(f"[16] {gs}: loss {loss:.6f}, grad norm {row['grad_norm']:.4f}"
+              f", step host wall {row['step_wall_ms']:.1f} ms (median of "
+              f"{PLAN_TIMED_STEPS}), peak device "
+              f"memory {row['peak_memory_gb']:.2f} GB, {busy_txt} ({card})")
+    del base
+    return rows
+
+
+def _adamw_shard_update(T, mesh, cfg, params, peak, card):
+    """16 (b): zero1's AdamW update of the shard alone (M = 1: all |θ|),
+    by CUDA events, beside its bytes bound: 7 f32 of |θ| over the
+    memory rate."""
+    import torch
+    from repro_torch.config import ShardingPlan
+    from repro_torch.optim import adamw
+    opt = adamw(3e-4, grad_clip_norm=1.0)
+    # zero3's layout: the parameters' flat shard and AdamW's over it
+    p, state = T.place_state(cfg, mesh, ShardingPlan(grad_sharding="zero3"),
+                             params, opt.init(params))
+    g = torch.randn(p.numel(), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    norm = torch.linalg.vector_norm(g)
+
+    def update():
+        u, _ = opt.update(g, state, p, norm=norm)
+        p.add_(u)
+    ms = time_ms(update)
+    nbytes = ADAMW_BYTES_PER_ELEM * p.numel()
+    bound = nbytes / peak[0] * 1e3
+    elems = p.numel()
+    del p, state
+    torch.cuda.empty_cache()
+    print(f"[16] zero1 AdamW shard update over {g.numel():,} elements: "
+          f"{ms:.3f} ms (CUDA events, median of {REPS}); bytes bound "
+          f"{bound:.3f} ms ({nbytes:,} bytes at {peak[0] / 1e12:.2f} TB/s), "
+          f"{100 * bound / ms:.1f}% of it ({card})")
+    del g
+    return {"ms": ms, "bound_ms": bound, "bytes": nbytes, "elems": elems}
+
+
+def _shardmap_steps(T, mesh, cfg, params, batch, sgd, q, rn, card):
+    """16 (c): the shard_map step at momentum 0 against a plain
+    single-device SGD step (rtol 2e-4, atol 2e-5), then its qsgd8 variant;
+    every kernel call of both held bit for bit against its plain version
+    at |θ| elements."""
+    import torch
+    out = {}
+    step, init_v = T.make_shardmap_train_step(cfg, mesh, lr=SHARDMAP_LR,
+                                              momentum=0.0)
+    before = (sgd.LAUNCHES, rn.LAUNCHES)
+    with HeldAgainstPlain(sgd, q) as held:
+        t0 = time.perf_counter()
+        new, v, loss = step(params, init_v(params), batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = (sgd.LAUNCHES - before[0], rn.LAUNCHES - before[1])
+    new_flat = flat_params(new)
+    del new, v
+    errs = held.check()
+    if launches != (1, NORMS_PER_FORWARD) or "fused_sgd" not in errs:
+        fail(f"16: the shard_map step launched fused_sgd and rmsnorm "
+             f"{launches} times, expected (1, {NORMS_PER_FORWARD})")
+    with uncounted(rn):             # the reference step's forward
+        err = held_to_single_step(T, cfg, params, batch, new_flat, loss,
+                                  SHARDMAP_LR)
+    del new_flat
+    torch.cuda.empty_cache()
+    out["sgd"] = {"loss": float(loss), "max_abs_err_vs_single": err,
+                  "step_wall_ms": wall, "fused_sgd_launches": launches[0],
+                  "rmsnorm_launches": launches[1]}
+    print(f"[16] shard_map step (momentum 0, lr {SHARDMAP_LR}): == a "
+          f"single-device SGD step within rtol 2e-4, atol 2e-5 (max abs err "
+          f"{err:.3g}); fused_sgd 1 launch over {T.flat_spec(cfg).total:,} "
+          f"elements == fused_sgd_plain bit for bit; {launches[1]} rmsnorm "
+          f"launches; step host wall {wall:.1f} ms (with the kept clones; "
+          f"{card})")
+
+    step, init_v = T.make_shardmap_train_step(cfg, mesh, lr=0.05,
+                                              momentum=0.9, compress="qsgd8")
+    before = (q.QUANTIZE_LAUNCHES, q.DEQUANTIZE_LAUNCHES, sgd.LAUNCHES)
+    with HeldAgainstPlain(sgd, q) as held:
+        new, v, loss = step(params, init_v(params), batch)
+        torch.cuda.synchronize()
+    launches = (q.QUANTIZE_LAUNCHES - before[0],
+                q.DEQUANTIZE_LAUNCHES - before[1], sgd.LAUNCHES - before[2])
+    finite = bool(torch.isfinite(flat_params(new)).all()) and math.isfinite(
+        float(loss))
+    del new, v
+    errs.update(held.check())
+    if launches != (1, 1, 1) or set(errs) != {"fused_sgd", "quantize",
+                                              "dequantize"} or not finite:
+        fail(f"16: the qsgd8 step launched quantize, dequantize, fused_sgd "
+             f"{launches} times (expected once each) or was not finite")
+    out["qsgd8"] = {"loss": float(loss), "launches": launches,
+                    "max_abs_err": errs}
+    print(f"[16] shard_map step with qsgd8: quantize, dequantize and "
+          f"fused_sgd once each over {T.flat_spec(cfg).total:,} elements, "
+          f"each == its plain version bit for bit; loss {float(loss):.6f}")
+    return out, errs
+
+
+def _train_loop_runs(T, get_arch, cfg, mesh, card):
+    """16 (d): train_loop at full width (4 steps, zero1, no checkpoint:
+    one is ~13 GB of disk) and the restart test at the smoke config."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    full = T.train_loop(cfg, steps=TRAIN_LOOP_STEPS,
+                        batch_size=TRAIN["batch"], seq_len=TRAIN["seq"],
+                        mesh=mesh, log_every=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = full["losses"]
+    del full
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses) or not any(
+            b < a for a, b in zip(losses, losses[1:])):
+        fail(f"16: train_loop losses {losses} are not finite or never fall")
+    smoke = dataclasses.replace(get_arch(LM_ARCH).smoke, n_layers=2,
+                                remat=False)
+    kw = dict(batch_size=2, seq_len=16, ckpt_every=3, log_every=0,
+              mesh=mesh, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = T.train_loop(smoke, steps=6, ckpt_dir=f"{tmp}/a", **kw)
+        T.train_loop(smoke, steps=3, ckpt_dir=f"{tmp}/b", **kw)
+        part2 = T.train_loop(smoke, steps=6, ckpt_dir=f"{tmp}/b", **kw)
+    a, b = whole["losses"][3:], part2["losses"]
+    restart_err = max(abs(x - y) for x, y in zip(a, b))
+    if len(b) != 3 or any(abs(x - y) > 1e-5 + 1e-4 * abs(x)
+                          for x, y in zip(a, b)):
+        fail(f"16: the restarted train_loop {b} != the uninterrupted "
+             f"{a} beyond rtol 1e-4, atol 1e-5")
+    print(f"[16] train_loop at full width, {TRAIN_LOOP_STEPS} steps (zero1, "
+          f"batch {TRAIN['batch']}, seq {TRAIN['seq']}): losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}, {wall:.1f} s with "
+          f"parameter init; restart at the smoke config == uninterrupted "
+          f"(max abs err {restart_err:.3g}; {card})")
+    return {"losses": losses, "wall_s": wall,
+            "restart_max_abs_err": restart_err}
+
+
+def _host_mesh_round(fs, FederatedSession, card):
+    """16 (e): a GradsSharding VGG-16 round on the host_mesh engine (one
+    card: the fold kernel's no-divide form over each shard, then one
+    divide), bit for bit the streaming engine's."""
+    import torch
+    from repro_torch.configs.paper_workloads import VGG16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = [torch.randn(VGG16.params, generator=gen, device="cuda")
+             for _ in range(N_CLIENTS)]
+    out = host_mesh_vs_streaming(fs, FederatedSession, grads, 1, "cuda")
+    del grads
+    launches = out["host_mesh_fold_launches"]
+    walls = {e: out[f"{e}_wall_ms"][0] / 1e3
+             for e in ("streaming", "host_mesh")}
+    if launches != N_SHARDS:
+        fail(f"16: the host_mesh round launched the fold {launches} times, "
+             f"expected {N_SHARDS} (one a shard node)")
+    print(f"[16] host_mesh VGG-16 GradsSharding round (N = {N_CLIENTS}, "
+          f"M = {N_SHARDS}, 1 card): == streaming bit for bit; fold "
+          f"{launches} launches; round host wall "
+          f"{walls['host_mesh'] * 1e3:.1f} ms vs streaming "
+          f"{walls['streaming'] * 1e3:.1f} ms ({card})")
+    torch.cuda.empty_cache()
+    return {"fold_launches": launches,
+            "round_wall_s": walls["host_mesh"],
+            "streaming_round_wall_s": walls["streaming"]}
+
+
+def _moe_local(models, meshctx, rn, get_arch, mesh, card):
+    """16 (f): phi3.5-moe at full width, 2 layers, f32: the local
+    dispatch under the mesh within 2e-4 of the global dispatch."""
+    import torch
+    cfg = _family_cfg(get_arch, MOE_ARCH, MOE_LAYERS,
+                      compute_dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    with torch.no_grad():
+        with uncounted(rn):          # the comparison's forward
+            glob = models.forward(params, cfg, {"tokens": toks})
+        with meshctx.use_mesh(mesh):
+            loc = models.forward(params, dataclasses.replace(
+                cfg, moe_dispatch="local"), {"tokens": toks})
+    err = float((loc - glob).abs().max())
+    ok = bool(((loc - glob).abs() <= 2e-4 + 2e-4 * glob.abs()).all())
+    del params, glob, loc
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"16: the local MoE dispatch != the global one beyond 2e-4 "
+             f"(max abs err {err})")
+    print(f"[16] {MOE_ARCH} ({MOE_LAYERS} layers, full width, f32): local "
+          f"dispatch under the (1, 1) mesh == global within 2e-4 (max abs "
+          f"err {err:.3g}; {card})")
+    return {"max_abs_err": err}
+
+
+def phase_trainer(fs, sgd, q, rn, models, get_arch, FederatedSession, peak,
+                  card):
+    """16: the single-program trainer at full width on a one-rank NCCL
+    group, the host_mesh engine and the MoE local dispatch. Every launch
+    count of the phase is read at its end. The forwards that the path is
+    compared with (a single-device step's, the global MoE dispatch's) are
+    left out of the counts, as is the rmsnorm check at the trainer's rows
+    made before the counts start."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers, meshctx
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"16: expected a one-rank NCCL group, got "
+             f"{dist.get_backend()} x {dist.get_world_size()}")
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model, remat=False)
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (TRAIN["batch"], TRAIN["seq"] + 1),
+                         device="cuda", generator=torch.Generator(
+                             device="cuda").manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    norm_err = check_trainer_norm(rn, layers, cfg, params, batch)
+    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = 0    # the phase's main path
+    q.QUANTIZE_LAUNCHES = q.DEQUANTIZE_LAUNCHES = 0
+    out = {"plans": _plan_steps(T, mesh, cfg, params, batch, rn, card)}
+    out["adamw_shard"] = _adamw_shard_update(T, mesh, cfg, params, peak,
+                                             card)
+    out["shardmap"], errs = _shardmap_steps(T, mesh, cfg, params, batch, sgd,
+                                            q, rn, card)
+    del params, batch, toks
+    torch.cuda.empty_cache()
+    out["train_loop"] = _train_loop_runs(T, get_arch, cfg, mesh, card)
+    out["host_mesh"] = _host_mesh_round(fs, FederatedSession, card)
+    out["moe_local"] = _moe_local(models, meshctx, rn, get_arch, mesh,
+                                  card)
+    torch.cuda.synchronize()
+    launches = {"rmsnorm": rn.LAUNCHES, "fused_sgd": sgd.LAUNCHES,
+                "quantize": q.QUANTIZE_LAUNCHES,
+                "dequantize": q.DEQUANTIZE_LAUNCHES, "fold": fs.LAUNCHES}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"16: the trainer path never launched {missing}")
+    dist.destroy_process_group()
+    out.update({"launches": launches, "max_abs_err": errs,
+                "rmsnorm_max_abs_err": norm_err,
+                "params": models.param_count(cfg),
+                "seconds": time.perf_counter() - t0})
+    print(f"[16] launches on the phase's path: "
+          + ", ".join(f"{k} {n}" for k, n in launches.items())
+          + f"; {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -2662,6 +3229,11 @@ def main() -> None:
     # phase 15: the federated CNN
     fl_cnn = phase_federated_cnn(fs, sgd, card)
     clock.append(("15 federated CNN", time.perf_counter()))
+    # phase 16: the single-program trainer
+    torch.cuda.empty_cache()
+    trainer = phase_trainer(fs, sgd, q, rn, models, get_arch,
+                            FederatedSession, peaks(name), card)
+    clock.append(("16 trainer", time.perf_counter()))
     phase_s = {label: t - clock[i][1]
                for i, (label, t) in enumerate(clock[1:])}
     print(f"phase seconds ({card}): " + ", ".join(
@@ -2691,6 +3263,7 @@ def main() -> None:
                       "families": {"rmsnorm_rows": family_norms,
                                    "models": families},
                       "long_context": long_ctx, "federated_cnn": fl_cnn,
+                      "trainer": trainer,
                       "phase_seconds": phase_s,
                       "card": card}))
     kernels = [{
@@ -2698,7 +3271,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/fedavg_stream.cu",
         "replaces": "src/repro/kernels/fedavg_stream.py:47",
         "launches": launches + fault_launches + sum(pop_launches.values())
-        + fl_cnn["fold_launches"],
+        + fl_cnn["fold_launches"] + trainer["launches"]["fold"],
         "max_abs_err": max_err,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2713,7 +3286,8 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "launches": codec_counts[name],
+            "replaces": replaces,
+            "launches": codec_counts[name] + trainer["launches"].get(name, 0),
             "max_abs_err": codec_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -2732,7 +3306,8 @@ def main() -> None:
             "equal_plain": exact})
     step = lm_rows["fused_sgd"]
     kernels[-2].update({"launches": lm_launches["fused_sgd"]
-                        + fl_cnn["fused_sgd_launches"],
+                        + fl_cnn["fused_sgd_launches"]
+                        + trainer["launches"]["fused_sgd"],
                         "device_ms": step["device_ms"],
                         "library_device_ms": step["library_device_ms"]})
     norm = lm_rows["rmsnorm"]
@@ -2740,9 +3315,9 @@ def main() -> None:
     family_launches = sum(r["launches"] for r in families.values())
     kernels[-1].update({
         "launches": lm_launches["rmsnorm"] + serve_out["launches"]
-        + family_launches,
+        + family_launches + trainer["launches"]["rmsnorm"],
         "max_abs_err": max(lm_errs["rmsnorm"], serve_norm_err,
-                           family_norm_err),
+                           family_norm_err, trainer["rmsnorm_max_abs_err"]),
         "device_ms": norm["device_ms"],
         "library_device_ms": norm["library_device_ms"],
         "copy_device_ms": norm["copy_device_ms"],

@@ -37,7 +37,7 @@ from typing import Any, Callable, Iterator, Mapping, Sequence
 
 from repro_torch import knobs
 from repro_torch.config import LambdaLimits
-from repro_torch.core.agg_engine import ENGINES
+from repro_torch.core.agg_engine import ENGINES, get_backend
 from repro_torch.core.cost_model import UploadModel
 from repro_torch.core.fold_pool import get_workers
 from repro_torch.core.sharding import as_grad_tensor, resolve_device
@@ -147,8 +147,10 @@ class SessionConfig:
     # core). Work is split along the element axis only, so avg_flat is
     # bit-identical at every worker count
     workers: int | str | None = None
-    # multi-device fold engine of the reference package: not ported yet
-    # (ROADMAP queue 1, item 4); anything but None raises
+    # fold-device count for engine="host_mesh": that many cards on a CUDA
+    # session, that many column slices of the host on a CPU one (None:
+    # every visible card / one slice a host core). Rejected for any other
+    # engine; avg_flat is bit-identical at every count
     host_mesh: int | None = None
     topology_options: Mapping[str, Any] = field(default_factory=dict)
     # where client gradients, shards and the mean live
@@ -236,14 +238,13 @@ class FederatedSession:
             config = replace(config, faults=faults)
             faults = None
         self.config = config
-        if config.host_mesh is not None:
-            raise NotImplementedError(
-                "the host_mesh engine is not ported yet (ROADMAP queue 1, "
-                "item 4: device collectives and the multi-device engine)")
         self.device = resolve_device(config.device)      # fail fast
         self.topology = get_topology(config.topology)   # fail fast
         get_codec(config.codec)                         # fail fast too
         get_workers(config.workers)                     # and on workers
+        # and on host_mesh: only with its engine, no more cards than exist
+        get_backend(config.engine, host_mesh=config.host_mesh,
+                    device=self.device)
         # fail fast on bad fault/participation/deadline/quorum combos
         # (cohort-size-dependent bounds re-check per round)
         validate_fault_knobs(get_schedule(config.schedule),
@@ -335,7 +336,7 @@ class FederatedSession:
             staleness_policy=cfg.staleness_policy,
             stale_buffer=self.stale_buffer,
             hedge_factor=cfg.hedge_factor, workers=cfg.workers,
-            **cfg.round_options())
+            host_mesh=cfg.host_mesh, **cfg.round_options())
         return self._finish_round(result, rnd)
 
     def _population_round(self, rnd: int) -> AggregationResult:
@@ -356,7 +357,8 @@ class FederatedSession:
             staleness_policy=cfg.staleness_policy,
             stale_buffer=self.stale_buffer,
             hedge_factor=cfg.hedge_factor, workers=cfg.workers,
-            device=self.device, **cfg.round_options())
+            host_mesh=cfg.host_mesh, device=self.device,
+            **cfg.round_options())
         return self._finish_round(result, rnd)
 
     def _finish_round(self, result: AggregationResult,

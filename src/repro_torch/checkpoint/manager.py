@@ -1,8 +1,10 @@
 """Fault-tolerant checkpointing of flat state dicts.
 
 The reference's ``checkpoint/manager.py`` on the port's trees (a tensor,
-or a dict of tensors under dotted names), with the reference's on-disk
-form, so a checkpoint that either package writes restores in the other:
+a dict of tensors under dotted names, or tuples and named tuples of
+those, such as the trainer's ``(params, AdamState)``), with the
+reference's on-disk form, so a checkpoint that either package writes
+restores in the other:
 
   * atomic: write to ``<dir>/tmp_<step>`` then rename — a crash mid-save
     never corrupts the latest checkpoint;
@@ -14,8 +16,10 @@ form, so a checkpoint that either package writes restores in the other:
   * bounded: ``keep`` old checkpoints are retained, older ones deleted.
 
 Leaves are stored in the reference's leaf order (dict keys sorted at every
-level, :func:`repro_torch.core.sharding.leaf_order`) under its names: the
-dotted parts joined with ``/`` (a bare tensor is ``leaf``). npz has no
+level, :func:`repro_torch.core.sharding.leaf_order`; tuple elements in
+order) under its key-path names: the dotted parts joined with ``/``, a
+tuple element by its index, a named tuple's field as ``.field`` (a bare
+tensor is ``leaf``). npz has no
 bf16: a bf16 leaf is stored as f32 with ``"dtype": "bfloat16"`` in the
 manifest, as the reference stores its ``ml_dtypes`` leaves, and restore
 casts it back. Storage is shard-layout-agnostic: the elastic M → M′ path
@@ -35,15 +39,32 @@ import torch
 from repro_torch.core.sharding import leaf_order
 
 
-def _leaf_paths(tree) -> list[tuple[str, str]]:
-    """(dotted name or None for a bare tensor, stored name) in leaf order."""
+def _leaves(tree, parts: tuple = ()) -> list[tuple[str, torch.Tensor]]:
+    """(stored name, tensor) of every leaf, in leaf order."""
     if isinstance(tree, Mapping):
-        return [(name, name.replace(".", "/")) for name in leaf_order(tree)]
-    return [(None, "leaf")]
+        return [leaf for name in leaf_order(tree)
+                for leaf in _leaves(tree[name], parts + tuple(
+                    name.split(".")))]
+    if isinstance(tree, tuple):
+        keys = [f".{f}" for f in tree._fields] if hasattr(tree, "_fields") \
+            else [str(i) for i in range(len(tree))]
+        return [leaf for key, val in zip(keys, tree)
+                for leaf in _leaves(val, parts + (key,))]
+    return [("/".join(parts) or "leaf", tree)]
 
 
-def _leaf(tree, name):
-    return tree if name is None else tree[name]
+def _rebuild(like, values):
+    """``like``'s structure with its leaves taken from the iterator
+    ``values`` in leaf order."""
+    if isinstance(like, Mapping):
+        out = {name: _rebuild(like[name], values)
+               for name in leaf_order(like)}
+        return {name: out[name] for name in like}
+    if isinstance(like, tuple):
+        vals = [_rebuild(v, values) for v in like]
+        return type(like)(*vals) if hasattr(like, "_fields") \
+            else tuple(vals)
+    return next(values)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -76,8 +97,8 @@ class CheckpointManager:
         os.makedirs(tmp)
         manifest = {"step": step, "leaves": [], "extra": extra or {}}
         arrays = {}
-        for i, (name, stored) in enumerate(_leaf_paths(tree)):
-            arr, dtype = _to_numpy(_leaf(tree, name))
+        for i, (stored, leaf) in enumerate(_leaves(tree)):
+            arr, dtype = _to_numpy(leaf)
             key = f"a{i:05d}"
             arrays[key] = arr
             manifest["leaves"].append({
@@ -118,15 +139,14 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         data = np.load(os.path.join(d, "arrays.npz"))
-        paths = _leaf_paths(like)
+        paths = _leaves(like)
         entries = manifest["leaves"]
         if len(entries) != len(paths):
             raise ValueError(
                 f"checkpoint has {len(entries)} leaves, expected "
                 f"{len(paths)}")
-        out = {}
-        for entry, (name, stored) in zip(entries, paths):
-            ref = _leaf(like, name)
+        out = []
+        for entry, (stored, ref) in zip(entries, paths):
             if entry["name"] != stored:
                 raise ValueError(
                     f"checkpoint leaf {entry['name']!r} where {stored!r} "
@@ -142,10 +162,9 @@ class CheckpointManager:
                     raise IOError(
                         f"{entry['name']}: checksum mismatch (corrupt "
                         f"checkpoint at step {step})")
-            out[name] = torch.from_numpy(np.array(arr)).to(
-                device=ref.device, dtype=ref.dtype)
-        tree = out[None] if None in out else out
-        return tree, manifest.get("extra", {})
+            out.append(torch.from_numpy(np.array(arr)).to(
+                device=ref.device, dtype=ref.dtype))
+        return _rebuild(like, iter(out)), manifest.get("extra", {})
 
     def restore_latest(self, like):
         """Newest complete and valid checkpoint as (step, tree, extra),

@@ -3,9 +3,12 @@
 The reference package's configuration as far as the port runs it: the FL
 round settings and the AWS Lambda platform constants the cost model and
 the simulated runtime price every round with, the model configuration
-(``ModelConfig``, ``ArchSpec``, ``smoke_of``) and the input-shape cells
+(``ModelConfig``, ``ArchSpec``, ``smoke_of``), the input-shape cells
 of the language models (``ShapeConfig``, ``LM_SHAPES``,
-``shape_applicable``). No mesh or hardware configuration lives here yet.
+``shape_applicable``), the device mesh and the trainer's sharding plan
+(``MeshConfig``, ``ShardingPlan``) and the card's published peaks
+(``GPUSpec``, ``H100_SXM``), which take the place of the reference's TPU
+model.
 """
 from __future__ import annotations
 
@@ -191,6 +194,87 @@ def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]
     if shape.name == "long_500k" and not model.subquadratic:
         return False, "skip: full quadratic attention at 512k context (see DESIGN.md)"
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Mesh / parallelism
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: tuple[int, ...] = (16, 16)
+    axes: tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def replica_axes(self) -> tuple[str, ...]:
+        """Axes that replicate the model = data-parallel/gradient-shard axes."""
+        return tuple(a for a in self.axes if a != "model")
+
+    @property
+    def data_parallel_size(self) -> int:
+        n = 1
+        for s, a in zip(self.shape, self.axes):
+            if a != "model":
+                n *= s
+        return n
+
+    @property
+    def model_parallel_size(self) -> int:
+        for s, a in zip(self.shape, self.axes):
+            if a == "model":
+                return s
+        return 1
+
+
+SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD_MESH = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+@dataclass(frozen=True)
+class ShardingPlan:
+    """How the trainer distributes parameters/grads/optimizer state.
+
+    ``grad_sharding`` is the paper's technique as device collectives:
+      - "none"  : full-gradient aggregation (lambda-FL / LIFL analogue) —
+                  all-reduce, optimizer state replicated on every replica.
+      - "zero1" : GradsSharding analogue — reduce-scatter gradients over the
+                  replica axes; each device owns |theta|/M of the optimizer.
+      - "zero3" : parameters also stored sharded (FSDP) — all-gather on use.
+    """
+
+    grad_sharding: str = "zero1"
+    partition: str = "balanced"          # "uniform" | "balanced" (layer-aware)
+    compress: str = "none"               # "none" | "qsgd8" | "topk"
+    hierarchical: bool = True            # pod-local reduce then cross-pod
+    overlap: bool = True                 # bucketed RS inside scan
+    remat_policy: str = "dots"           # "none" | "dots" | "full"
+
+
+# ---------------------------------------------------------------------------
+# GPU hardware model for rooflines
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GPUSpec:
+    """Published peaks of one card, for bounds: every value is a data-sheet
+    constant at the card's full power limit, not a measurement."""
+
+    name: str = "H100 SXM"
+    hbm_bw: float = 3.35e12              # bytes/s, data sheet (HBM3)
+    peak_flops_f32: float = 67e12        # /s outside the tensor cores, data sheet
+    peak_flops_f64: float = 34e12        # /s outside the tensor cores, data sheet
+    peak_flops_bf16: float = 989e12      # /s dense tensor cores, data sheet
+    hbm_bytes: int = 80 * 10**9          # data sheet
+
+
+H100_SXM = GPUSpec()
 
 
 @dataclass(frozen=True)

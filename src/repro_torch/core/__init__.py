@@ -2,6 +2,7 @@ from repro_torch.core import (
     agg_engine,
     aggregation,
     cost_model,
+    device_agg,
     fedavg,
     sharded_tree,
     sharding,
@@ -9,5 +10,5 @@ from repro_torch.core import (
     wire_codec,
 )
 
-__all__ = ["agg_engine", "aggregation", "cost_model", "fedavg",
+__all__ = ["agg_engine", "aggregation", "cost_model", "device_agg", "fedavg",
            "sharded_tree", "sharding", "topology", "wire_codec"]

@@ -8,7 +8,7 @@ separates:
   * **actual arithmetic** — the real averaging, on torch tensors on the
     session's device, whose result feeds the bit-identity checks.
 
-Three backends implement the same primitive-op protocol:
+Four backends implement the same primitive-op protocol:
 
   * ``"streaming"`` — the reference. Arithmetic runs inline inside each
     simulated invocation, one contribution at a time (the paper's
@@ -22,6 +22,11 @@ Three backends implement the same primitive-op protocol:
     dependents. On the CPU the DAG runs the chunked fold, which keeps
     accumulators in L2-sized blocks, fuses all phases of a topology per
     chunk and threads across disjoint element ranges.
+  * ``"host_mesh"`` — the batched DAG with its unweighted folds split
+    along the element axis over several devices
+    (:func:`repro_torch.core.device_agg.mesh_fold_sum`): each card (or
+    each column slice of the host, on the CPU) folds its slice without
+    dividing, and the joined sum takes one f32 divide.
   * ``"incremental"`` — the streaming *prefix fold*, tuned. Arithmetic is
     eager like ``streaming`` (the running prefix mean is up to date the
     moment contribution *i* lands — the natural partner of the pipelined
@@ -49,8 +54,8 @@ All backends drive the **same invocation body template**, so every
 accounting field (``puts``/``gets``, ``billed_gb_s``, ``peak_memory_mb``,
 ``duration_s``, phase walls) is identical by construction.
 
-Selection: pass ``engine="streaming" | "batched" | "incremental"`` to
-``aggregate_round`` (or any topology function), or set
+Selection: pass ``engine="streaming" | "batched" | "incremental" |
+"host_mesh"`` to ``aggregate_round`` (or any topology function), or set
 ``REPRO_AGG_ENGINE`` in the environment; the default is ``"batched"``.
 Engines compose freely with the round *schedule* knob
 (``schedule="barrier" | "pipelined"`` / ``REPRO_AGG_SCHEDULE``).
@@ -73,6 +78,7 @@ from typing import Sequence
 import torch
 
 from repro_torch import knobs
+from repro_torch.core import device_agg
 from repro_torch.core.fold_pool import CHUNK_ELEMS, ParallelFoldPool, get_pool
 from repro_torch.core.sharding import PartitionPlan, ShardView, shard, \
     shard_views
@@ -644,31 +650,87 @@ class BatchedBackend(ExecutionBackend):
         self._memo = {}
 
 
+class HostMeshBackend(BatchedBackend):
+    """Multi-device path: the batched DAG with element-sharded folds.
+
+    Same deferred-DAG recording as :class:`BatchedBackend`; at round end,
+    unweighted nodes whose inputs are all concrete go through
+    :func:`repro_torch.core.device_agg.mesh_fold_sum` — each fold device
+    owns a contiguous element slice and adds the node's inputs in client
+    order without dividing (the fold kernel's ``finalize=False`` form on a
+    card, its plain version on the CPU) — then one f32 divide by N, a 0-d
+    tensor, on the joined sum. That is the streaming reference's op
+    sequence, so the result stays bit-identical to every other engine;
+    weighted (f64) folds and nodes with lazy ancestors fall through to the
+    batched evaluator.
+
+    Selection: ``engine="host_mesh"`` (``SessionConfig.host_mesh`` sizes
+    the mesh: that many cards on ``"cuda"``, that many column slices of
+    the host on ``"cpu"``; ``None`` takes every visible card, or one slice
+    a host core).
+    """
+
+    name = "host_mesh"
+
+    def __init__(self, workers: int | str | None = None,
+                 n_devices: int | None = None, device_type: str = "cuda"):
+        super().__init__(workers=workers)
+        self._devices = device_agg.make_fold_mesh(n_devices, device_type)
+
+    def _evaluate_mesh(self) -> None:
+        ready = [nd for nd in self._nodes
+                 if nd.out is None and nd.weights is None and nd.size > 0
+                 and not any(isinstance(x, LazyAverage) and x.out is None
+                             for x in nd.inputs)]
+        for nd in ready:
+            total = device_agg.mesh_fold_sum(
+                self._devices, [_materialize(x) for x in nd.inputs])
+            # the single f32 divide of _node_chunk — bits preserved
+            nd.out = torch.div(total, _scalar(float(len(nd.inputs)), total))
+
+    def end_round(self, store: ObjectStore) -> None:
+        self._evaluate_mesh()
+        super().end_round(store)
+
+
 # ---------------------------------------------------------------------------
 # Selection
 # ---------------------------------------------------------------------------
 
 DEFAULT_ENGINE = "batched"
 
-ENGINES = ("streaming", "batched", "incremental")
+ENGINES = ("streaming", "batched", "incremental", "host_mesh")
 
 
 def get_backend(engine: str | ExecutionBackend | None = None, *,
-                workers: int | str | None = None) -> ExecutionBackend:
+                workers: int | str | None = None,
+                host_mesh: int | None = None,
+                device: str | torch.device | None = None) -> ExecutionBackend:
     """Resolve the engine knob: an instance, a name, ``None``/"auto" (env
     ``REPRO_AGG_ENGINE``, else ``"batched"``).
 
     ``workers`` sizes the :class:`~repro_torch.core.fold_pool
-    .ParallelFoldPool` behind the batched engine's CPU evaluator (``None``
-    defers to ``REPRO_AGG_WORKERS``, else the host's real core count); the
-    streaming and incremental engines fold one contribution at a time, so
-    the knob is inert there. Backends are stateful per round — this
-    returns a fresh instance (pools are shared per worker count).
+    .ParallelFoldPool` behind the batched and host_mesh engines' CPU
+    evaluator (``None`` defers to ``REPRO_AGG_WORKERS``, else the host's
+    real core count); the streaming and incremental engines fold one
+    contribution at a time, so the knob is inert there. ``host_mesh``
+    sizes the ``host_mesh`` engine's fold devices, on the type of
+    ``device`` (the round's values' device, ``"cuda"`` when not given),
+    and is rejected for any other engine. Backends are stateful per round
+    — this returns a fresh instance (pools are shared per worker count).
     """
     if isinstance(engine, ExecutionBackend):
         return engine
     if engine is None or engine == "auto":
         engine = knobs.env_engine(DEFAULT_ENGINE)
+    if host_mesh is not None and engine != "host_mesh":
+        raise ValueError(
+            f"host_mesh={host_mesh} requires engine='host_mesh', "
+            f"got engine={engine!r}")
+    if engine == "host_mesh":
+        device_type = torch.device(device or "cuda").type
+        return HostMeshBackend(workers=workers, n_devices=host_mesh,
+                               device_type=device_type)
     if engine == "streaming":
         return StreamingBackend()
     if engine == "batched":

@@ -81,14 +81,16 @@ def aggregate_round(topology: str, client_grads: Sequence, *,
                     stale_buffer=None,
                     hedge_factor: float | None = None,
                     workers: int | str | None = None,
+                    host_mesh: int | None = None,
                     **kw) -> AggregationResult:
     """One aggregation round of any registered topology (functional form
     of :meth:`repro_torch.api.FederatedSession.round`). The fault-tolerance
     knobs (``faults``/``participation_k``/``deadline_s``/``quorum``),
     the robustness knobs (``staleness_policy`` + caller-owned
     ``stale_buffer`` for cross-round stale re-entry, ``hedge_factor``
-    for speculative aggregator hedging) and the host-parallelism knob
-    (``workers`` fold-pool width) mirror
+    for speculative aggregator hedging) and the parallelism knobs
+    (``workers`` fold-pool width, ``host_mesh`` fold-device count for
+    ``engine="host_mesh"``) mirror
     :class:`repro_torch.api.SessionConfig`; see
     :func:`repro_torch.core.topology.run_round`."""
     return run_round(
@@ -102,6 +104,6 @@ def aggregate_round(topology: str, client_grads: Sequence, *,
         deadline_s=deadline_s, quorum=quorum,
         staleness_policy=staleness_policy, stale_buffer=stale_buffer,
         hedge_factor=hedge_factor,
-        workers=workers,
+        workers=workers, host_mesh=host_mesh,
         n_shards=n_shards, partition=partition, tensor_sizes=tensor_sizes,
         **kw)

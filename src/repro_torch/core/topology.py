@@ -792,6 +792,7 @@ def run_round(topology: str | Topology,
               stale_buffer: StaleBuffer | None = None,
               hedge_factor: float | None = None,
               workers: int | str | None = None,
+              host_mesh: int | None = None,
               **options) -> AggregationResult:
     """Execute one aggregation round of any registered topology.
 
@@ -865,9 +866,11 @@ def run_round(topology: str | Topology,
     off this path is bit-for-bit the legacy fault-free round.
 
     ``workers`` (env ``REPRO_AGG_WORKERS``) sizes the host fold pool
-    behind the batched engine's CPU evaluator. It moves wall-clock only —
-    ``avg_flat``, op counts and billing are invariant at every worker
-    count (the fold pool's determinism contract).
+    behind the batched and host_mesh engines' CPU evaluator;
+    ``host_mesh`` sizes the ``host_mesh`` engine's fold devices (cards on
+    a CUDA round, column slices of the host on a CPU one). Both move
+    wall-clock only — ``avg_flat``, op counts and billing are invariant
+    at every worker and device count (the folds' determinism contract).
 
     ``client_grads`` are flat f32 tensors (numpy arrays are taken as CPU
     tensors); the fold runs on their device.
@@ -875,7 +878,10 @@ def run_round(topology: str | Topology,
     topo = topology if isinstance(topology, Topology) \
         else get_topology(topology)
     topo.validate_options(options)
-    backend = get_backend(engine, workers=workers)
+    client_grads = [as_grad_tensor(g) for g in client_grads]
+    backend = get_backend(engine, workers=workers, host_mesh=host_mesh,
+                          device=client_grads[0].device if client_grads
+                          else None)
     sched = get_schedule(schedule)
     barrier = sched == "barrier"
     # validate unconditionally (a bad knob must not pass silently just
@@ -884,7 +890,6 @@ def run_round(topology: str | Topology,
     if barrier:
         readahead = 1
     cdc = get_codec(codec)
-    client_grads = [as_grad_tensor(g) for g in client_grads]
     n = len(client_grads)
     validate_fault_knobs(sched, participation_k=participation_k,
                          deadline_s=deadline_s, quorum=quorum,

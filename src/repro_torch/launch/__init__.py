@@ -1,4 +1,4 @@
-"""Launch layer of the port: the multi-round federated loop
-(``train.federated_train_loop``), the federated LM trainer
-(``federated_lm``), the serving loop (``serve``) and the host helpers
-(``hostenv``)."""
+"""Launch layer of the port: device meshes (``mesh``), partition specs
+(``partitioning``), the single-program trainer and the multi-round
+federated loop (``train``), the federated LM trainer (``federated_lm``),
+the serving loop (``serve``) and the host helpers (``hostenv``)."""

@@ -3,8 +3,11 @@
 The reference's ``optim/optimizers.py``: ``sgd`` (the paper's client and
 server optimizer, lr 0.01, momentum 0.9), ``adamw``, ``apply_updates``
 and ``global_norm``. A tree is a tensor or a dict of tensors (a parameter
-dict). Updates are plain tensor ops in the reference's order (no
-``alpha=``, ``addcmul`` or ``lerp``, which fuse a multiply into an add).
+dict), or one flat shard of the parameters: the sharded trainer updates
+only its |θ|/M shard, so optimizer state is O(|θ|/M) a device, and passes
+the whole gradient's norm as ``update(..., norm=)`` for the clipping.
+Updates are plain tensor ops in the reference's order (no ``alpha=``,
+``addcmul`` or ``lerp``, which fuse a multiply into an add).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ Tree = Any
 class Optimizer:
     init: Callable[[Tree], Tree]
     update: Callable[..., tuple[Tree, Tree]]
-    # update(grads, opt_state, params) -> (updates, new_state);
+    # update(grads, opt_state, params, norm=None) -> (updates, new_state);
     # apply:  params + updates
 
 
@@ -55,7 +58,8 @@ def sgd(lr: float, momentum: float = 0.0, nesterov: bool = False
         return _tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                         params)
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, norm=None):
+        # sgd does not clip: ``norm`` is taken and unused
         if momentum == 0.0:
             return _tree_map(lambda g: -lr * g, grads), ()
         new_v = _tree_map(lambda v, g: momentum * v + g.to(torch.float32),
@@ -80,7 +84,9 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.0,
           grad_clip_norm: float | None = None) -> Optimizer:
     """AdamW with f32 moments and optional global-norm gradient clipping;
-    the step count lives on the parameters' device."""
+    the step count lives on the parameters' device. ``update``'s ``norm``
+    is the whole gradient's global norm when ``grads`` is one shard of it
+    (None: the norm of ``grads``)."""
     f32 = torch.float32
 
     def init(params):
@@ -89,9 +95,9 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                            device=_leaves(params)[0].device)
         return AdamState(step, _tree_map(z, params), _tree_map(z, params))
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm=None):
         if grad_clip_norm is not None:
-            gn = global_norm(grads)
+            gn = global_norm(grads) if norm is None else norm
             scale = torch.clamp(grad_clip_norm / (gn + 1e-9), max=1.0)
             grads = _tree_map(lambda g: g * scale, grads)
         step = state.step + 1

@@ -642,7 +642,8 @@ def run_population_round(topology: str | Topology, pop: ClientPopulation, *,
     membership, upload schedule, deadline/quorum cut, phase sequencing,
     read-back, result assembly — with the same knobs and bit-identical
     observables, but O(active participants) live state instead of O(N).
-    ``engine`` is validated and ignored: invocation accounting is
+    ``engine`` (with ``host_mesh``) is validated and ignored: invocation
+    accounting is
     value-agnostic (identical across engines), and the value plane
     replays the streaming reference arithmetic every engine matches
     bit-for-bit; results report ``engine="streaming"``. ``workers`` is
@@ -671,13 +672,10 @@ def run_population_round(topology: str | Topology, pop: ClientPopulation, *,
         raise NotImplementedError(
             "the population engine does not support speculative hedging "
             "(hedge_factor)")
-    if host_mesh is not None:
-        raise NotImplementedError(
-            "the host_mesh engine is not ported yet (ROADMAP queue 1, "
-            "item 4: device collectives and the multi-device engine)")
-    get_backend(engine)              # fail fast on unknown names
-    get_pool(workers)                # and on bad worker counts
     device = resolve_device(device)
+    # fail fast on unknown names and a host_mesh the device cannot hold
+    get_backend(engine, host_mesh=host_mesh, device=device)
+    get_pool(workers)                # and on bad worker counts
     sched = get_schedule(schedule)
     barrier = sched == "barrier"
     readahead = get_readahead(readahead_k)

@@ -857,3 +857,83 @@ def test_federated_cnn_rounds_on_card(monkeypatch):
         finals.append(flatten(params)[0])
     for other in finals[1:]:
         torch.testing.assert_close(other, finals[0], rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The single-program trainer and the host_mesh engine on one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_one_rank_nccl_trainer_on_card():
+    """One rank of an NCCL group, mesh (1, 1): the three plans from the
+    same smoke parameters agree (losses within 1e-5, parameters within
+    rtol 5e-4 / atol 1e-4), and the shard_map step with qsgd8 launches
+    quantize, dequantize and fused-SGD once each and rmsnorm 5 times (a
+    2-layer forward)."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig, ShardingPlan
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sharding import flatten
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry as models
+    from repro_torch.optim import adamw
+
+    _need_card()
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b").smoke, remat=False,
+                              compute_dtype=torch.float32)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (8, 17),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+    shape = ShapeConfig("t", seq_len=16, global_batch=8, kind="train")
+    opt = adamw(1e-3, grad_clip_norm=1.0)
+    outs = {}
+    for gs in T.PLANS:
+        plan = ShardingPlan(grad_sharding=gs)
+        step = T.jit_train_step(cfg, shape, mesh, plan, opt, None,
+                                donate=False)
+        new, state, m = step(params, opt.init(params), batch)
+        new, _ = T.gather_state(cfg, mesh, plan, new, state)
+        outs[gs] = (flatten(new)[0], float(m["loss"]))
+    for gs in ("zero1", "zero3"):
+        assert abs(outs[gs][1] - outs["none"][1]) < 1e-5
+        torch.testing.assert_close(outs[gs][0], outs["none"][0],
+                                   rtol=5e-4, atol=1e-4)
+    before = (q.QUANTIZE_LAUNCHES, q.DEQUANTIZE_LAUNCHES, sgd.LAUNCHES,
+              rn.LAUNCHES)
+    step, init_v = T.make_shardmap_train_step(cfg, mesh, lr=0.05,
+                                              momentum=0.9, compress="qsgd8")
+    _, v, loss = step(params, init_v(params), batch)
+    torch.cuda.synchronize()
+    after = (q.QUANTIZE_LAUNCHES, q.DEQUANTIZE_LAUNCHES, sgd.LAUNCHES,
+             rn.LAUNCHES)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1, 5]
+    assert torch.isfinite(loss) and bool(torch.any(v != 0))
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", smoke.TOPOLOGIES)
+def test_host_mesh_round_on_card(topology):
+    """engine="host_mesh" on every visible card: the fold kernel's
+    no-divide form on each column slice, then one divide, bit for bit
+    the streaming engine's round."""
+    from repro_torch.core.topology import run_round
+    from repro_torch.serverless.runtime import LambdaRuntime
+    from repro_torch.store import ObjectStore
+
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    grads = [torch.randn(100_003, generator=g, device="cuda")
+             for _ in range(9)]
+    ref = run_round(topology, grads, rnd=0, store=ObjectStore(),
+                    runtime=LambdaRuntime(), engine="streaming", n_shards=4)
+    before = fs.LAUNCHES
+    got = run_round(topology, grads, rnd=0, store=ObjectStore(),
+                    runtime=LambdaRuntime(), engine="host_mesh", n_shards=4)
+    assert fs.LAUNCHES > before
+    assert _bits(got.avg_flat).equal(_bits(ref.avg_flat))

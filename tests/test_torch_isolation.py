@@ -55,6 +55,8 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
         "import repro_torch.configs.phi35_moe, repro_torch.configs.zamba2\n"
         "import repro_torch.configs.falcon_mamba\n"
         "import repro_torch.configs.chameleon\n"
+        "import repro_torch.core.device_agg, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.partitioning, repro_torch.models.meshctx\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

@@ -277,8 +277,14 @@ def test_population_refuses_unsupported_knobs():
         run("lifl", pop, colocated=True, **kw)
     with pytest.raises(NotImplementedError, match="population entry"):
         run("sharded_tree", pop, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="requires engine='host_mesh'"):
         run("lambda_fl", pop, host_mesh=2, **kw)
+    meshed = run("lambda_fl", pop, engine="host_mesh", host_mesh=2,
+                 **{**kw, "store": port_store.ObjectStore(),
+                    "runtime": port_runtime.LambdaRuntime()})
+    plain = run("lambda_fl", pop, **{**kw, "store": port_store.ObjectStore(),
+                                     "runtime": port_runtime.LambdaRuntime()})
+    assert torch.equal(meshed.avg_flat, plain.avg_flat)
     with pytest.raises(ValueError, match="client_grads"):
         FederatedSession(SessionConfig(population=pop, device="cpu")).round(
             [np.zeros(32, np.float32)])

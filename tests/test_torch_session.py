@@ -139,13 +139,20 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_unported_knobs_raise():
-    """`host_mesh` is still unported and raises; `population` is ported:
-    a population-backed session runs its round with no client gradients
-    and equals the eager round over the materialized cohort."""
-    with pytest.raises(NotImplementedError, match="item 4"):
+    """`host_mesh` is ported: on another engine it raises, as the
+    reference's does, and with `engine="host_mesh"` the round equals the
+    default engine's bit for bit; `population` is ported: a
+    population-backed session runs its round with no client gradients and
+    equals the eager round over the materialized cohort."""
+    with pytest.raises(ValueError, match="requires engine='host_mesh'"):
         FederatedSession(device="cpu", host_mesh=2)
     pop = ClientPopulation(smoke.N_CLIENTS, grad_elems=smoke.GRAD_ELEMS,
                            seed=1234)
+    meshed = FederatedSession(device="cpu", engine="host_mesh", host_mesh=2
+                              ).round(pop.materialize(0))
+    default = FederatedSession(device="cpu").round(pop.materialize(0))
+    assert torch.equal(meshed.avg_flat.view(torch.int32),
+                       default.avg_flat.view(torch.int32))
     lazy = FederatedSession(device="cpu", population=pop).round()
     eager = FederatedSession(device="cpu").round(pop.materialize(0))
     assert smoke.record(lazy) == smoke.record(eager)
