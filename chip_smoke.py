@@ -171,7 +171,21 @@ Phases, each fatal on failure:
    streaming round; ``phi3.5-moe-42b-a6.6b`` at full width, 2 layers, f32,
    its local MoE dispatch under the mesh within 2e-4 of the global one.
    The phase's launch counts are set to 0 at its start and must all grow;
-   the forwards the path is compared with do not count.
+   the forwards the path is compared with do not count;
+17. tensor parallelism's serving path on one card: the rmsnorm kernel
+   against its plain version (one bf16 ulp) at ``qwen3-32b``'s rows, (4,
+   5120) and the q/k-norm rows (256, 128) and (32, 128), a TP = 4 rank's
+   blocks (64, 128) and (8, 128), and chameleon's (4, 8192), beside
+   ``F.rms_norm``'s device time at (4, 5120) and (4, 8192); then on a
+   one-rank NCCL group and a (1, 1) ("data", "model") mesh: full-width
+   ``tinyllama-1.1b`` at f32 through ``make_serve_step(mesh, plan=none)``
+   bit for bit the mesh-less step over 23 steps (logits and cache), and
+   ``qwen3-32b`` at full depth (64 layers, 32.8 B parameters, bf16
+   parameters, 65.6 GB) through ``serve_loop(mesh=)`` at the reference's
+   defaults: 257 rmsnorm launches a step, tokens/s, the median host wall
+   of 20 steps, peak device memory, one profiled step's kernels and busy
+   share beside the step's bytes bound. ``tools/multi_card.py`` serves the
+   same model split over four cards.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -1844,12 +1858,13 @@ DECODE_ROWS = {"tinyllama-1.1b": (4, 2048), "h2o-danube-1.8b": (4, 2560),
                "qwen3-32b q-norm": (256, 128)}
 
 
-def phase_serve_kernels(rn, peak, decode_rows=DECODE_ROWS, tag="12"):
+def phase_serve_kernels(rn, peak, decode_rows=DECODE_ROWS, tag="12",
+                        library_rows=((4, 2048),)):
     """12 (1): the rmsnorm kernel against its plain version at every dense
     arch's decode rows (bf16 rows, f32 gamma; one bf16 ulp), by device time
-    a call beside its bound; at (4, 2048) also F.rms_norm's device time and
-    both wrappers' host time a call. Phase 13 runs it at the other
-    families' rows."""
+    a call beside its bound; at ``library_rows`` also F.rms_norm's time
+    and device time, and at (4, 2048) both wrappers' host time a call.
+    Phases 13 and 17 run it at other rows."""
     import torch
     bw, f32, _ = peak
     gen = torch.Generator(device="cuda").manual_seed(SEED + int(tag))
@@ -1876,22 +1891,25 @@ def phase_serve_kernels(rn, peak, decode_rows=DECODE_ROWS, tag="12"):
                "device_ms": got[0] if got else None,
                "ms": time_ms(kernel),
                "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, gamma))}
-        if (r, d) == DECODE_ROWS["tinyllama-1.1b"]:
+        if (r, d) in library_rows:
             g16 = gamma.bfloat16()
             library = lambda: torch.nn.functional.rms_norm(x, (d,),
                                                            weight=g16)
             lib = device_ms(library)
             row.update({"library_ms": time_ms(library),
-                        "library_device_ms": lib[0] if lib else None,
-                        "host_us": host_us(kernel),
-                        "library_host_us": host_us(library)})
+                        "library_device_ms": lib[0] if lib else None})
+            if (r, d) == DECODE_ROWS["tinyllama-1.1b"]:
+                row.update({"host_us": host_us(kernel),
+                            "library_host_us": host_us(library)})
         rows[f"{r}x{d}"] = row
         dev = "not measured" if row["device_ms"] is None else \
             f"{row['device_ms'] * 1e3:.3f} us " \
             f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of bound)"
+        lib = "" if row.get("library_device_ms") is None else \
+            f"; F.rms_norm device {row['library_device_ms'] * 1e3:.3f} us"
         print(f"[{tag}] rmsnorm at ({r}, {d}) bf16 ({label}): within one "
               f"bf16 ulp of plain; device {dev}, bound "
-              f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+              f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}){lib}")
     if "4x2048" not in rows:
         return rows, max_err
     row = rows["4x2048"]
@@ -3116,6 +3134,240 @@ def phase_trainer(fs, sgd, q, rn, models, get_arch, FederatedSession, peak,
     return out
 
 
+# ---------------------------------------------------------------------------
+# 17: tensor parallelism's serving path on one card
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "qwen3-32b"
+TP_NORMS_PER_STEP = 257          # 64 layers x (ln1, ln2, q-norm, k-norm) + 1
+# qwen3-32b's norm rows at batch 4: the residual, q- and k-norm over all
+# heads, and one rank's heads at TP = 4; chameleon's (4, 8192) beside it
+# for F.rms_norm's device time, which phase 13 did not take
+TP_ROWS = {"qwen3-32b": (4, 5120), "chameleon-34b": (4, 8192),
+           "qwen3-32b q-norm": (256, 128), "qwen3-32b k-norm": (32, 128),
+           "qwen3-32b q-norm, one of 4 ranks": (64, 128),
+           "qwen3-32b k-norm, one of 4 ranks": (8, 128)}
+TP_LIBRARY_ROWS = ((4, 5120), (4, 8192))
+
+
+def tp_serve_cfg(get_arch):
+    """qwen3-32b as registered, served at bf16 parameters (the reference's
+    serving configuration: ``dryrun._build_target`` sets ``param_dtype``
+    to bf16)."""
+    import torch
+    return dataclasses.replace(get_arch(TP_ARCH).model,
+                               param_dtype=torch.bfloat16, remat=False)
+
+
+def _tp_model1_bits(serve, models, rn, get_arch, mesh, card):
+    """17 (a): full-width tinyllama at f32 (f32 cache) through
+    make_serve_step on the (1, 1) mesh under the none plan, bit for bit the
+    mesh-less step over the serving run's 23 steps, logits and cache."""
+    import torch
+    from repro_torch.config import ShapeConfig, ShardingPlan
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model,
+                              compute_dtype=torch.float32, remat=False)
+    b, max_len = SERVE["batch"], SERVE["max_len"]
+    shape = ShapeConfig("serve", seq_len=max_len, global_batch=b,
+                        kind="decode")
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 17), cfg)
+    like = models.cache_specs(cfg, b, max_len, torch.float32)
+    on_mesh = serve.make_serve_step(cfg, shape, mesh, like,
+                                    ShardingPlan(grad_sharding="none"))
+    alone = serve.make_serve_step(cfg, shape, cache_like=like)
+    toks = torch.randint(0, cfg.vocab, (b, SERVE_STEPS), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED + 18))
+    caches = [models.init_cache(cfg, b, max_len, torch.float32, "cuda")
+              for _ in range(2)]
+    per_step = []
+    for i in range(SERVE_STEPS):
+        before = rn.LAUNCHES
+        got, caches[0] = on_mesh(params, toks[:, i:i + 1], caches[0])
+        per_step.append(rn.LAUNCHES - before)
+        with uncounted(rn):                  # the comparison's step
+            want, caches[1] = alone(params, toks[:, i:i + 1], caches[1])
+        if not bits_equal(got, want):
+            fail(f"17: step {i} on the (1, 1) mesh != the mesh-less step "
+                 f"(max abs err {float((got - want).abs().max())})")
+    if not all(bits_equal(caches[0][k], caches[1][k]) for k in ("k", "v")) \
+            or int(caches[0]["idx"]) != SERVE_STEPS:
+        fail("17: the (1, 1) mesh's cache != the mesh-less step's")
+    if per_step != [NORMS_PER_FORWARD] * SERVE_STEPS:
+        fail(f"17: rmsnorm launches a step on the (1, 1) mesh {per_step}")
+    del params, caches
+    torch.cuda.empty_cache()
+    print(f"[17] full-width {LM_ARCH} at f32 through make_serve_step on the "
+          f"(1, 1) mesh, none plan: {SERVE_STEPS} steps == the mesh-less "
+          f"step bit for bit (logits and cache); {NORMS_PER_FORWARD} rmsnorm "
+          f"launches a step ({card})")
+    return {"steps": SERVE_STEPS, "max_abs_err": 0.0,
+            "rmsnorm_per_step": NORMS_PER_FORWARD}
+
+
+def tp_prompt(cfg):
+    """serve_loop's prompts (seed 0): (batch, prompt_len) int32."""
+    import numpy as np
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"])).astype(np.int32)
+
+
+def tp_first_logits(serve, models, cfg, params, mesh, cache_dtype=None):
+    """The first decode step's logits (B, 1, V) on the serving run's first
+    prompt token, through make_serve_step on ``mesh`` (the cache in
+    ``cache_dtype``, by default the serving bf16); what the four-card run
+    holds against one card."""
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models import meshctx
+    b, max_len = SERVE["batch"], SERVE["max_len"]
+    shape = ShapeConfig("serve", seq_len=max_len, global_batch=b,
+                        kind="decode")
+    dtype = cache_dtype or torch.bfloat16
+    step = serve.make_serve_step(cfg, shape, mesh,
+                                 models.cache_specs(cfg, b, max_len, dtype))
+    dev = params["embed"].device
+    with meshctx.use_mesh(mesh):
+        cache = models.init_cache(cfg, b, max_len, dtype, dev)
+    logits, _ = step(params, torch.from_numpy(tp_prompt(cfg)[:, :1]).to(dev),
+                     cache)
+    return logits
+
+
+def _tp_qwen3(serve, models, rn, get_arch, mesh, peak, card):
+    """17 (b): qwen3-32b at full depth, bf16 parameters, served on the
+    (1, 1) mesh: serve_loop at the reference's defaults (257 rmsnorm
+    launches a step), then timed steps, one profiled step and the step's
+    bytes bound."""
+    import torch
+    from repro_torch.config import ShapeConfig
+    cfg = tp_serve_cfg(get_arch)
+    b, max_len = SERVE["batch"], SERVE["max_len"]
+    if models.norms_per_decode_step(cfg) != TP_NORMS_PER_STEP:
+        fail(f"17: {TP_ARCH} counts {models.norms_per_decode_step(cfg)} "
+             f"norms a step, expected {TP_NORMS_PER_STEP}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 19), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = models.param_count(cfg)
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    before = rn.LAUNCHES
+    out = serve.serve_loop(cfg, params=params, seed=0, device="cuda",
+                           mesh=mesh, **SERVE)
+    launches = rn.LAUNCHES - before
+    gen = out["generated"]
+    if launches != TP_NORMS_PER_STEP * SERVE_STEPS:
+        fail(f"17: serve_loop launched rmsnorm {launches} times, expected "
+             f"{TP_NORMS_PER_STEP} x {SERVE_STEPS}")
+    if gen.shape != (b, SERVE["max_new_tokens"]) or str(gen.dtype) != \
+            "int32" or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        fail(f"17: serve_loop generated {gen.dtype} {gen.shape}")
+    shape = ShapeConfig("serve", seq_len=max_len, global_batch=b,
+                        kind="decode")
+    with torch.inference_mode():
+        first = tp_first_logits(serve, models, cfg, params, mesh)
+        if first.shape != (b, 1, cfg.vocab) or not bool(
+                torch.isfinite(first).all()):
+            fail(f"17: the first step's logits {tuple(first.shape)} are not "
+                 f"finite (B, 1, V)")
+        step = serve.make_serve_step(cfg, shape, mesh,
+                                     models.cache_specs(cfg, b, max_len))
+        cache = models.init_cache(cfg, b, max_len, device="cuda")
+        tok = torch.from_numpy(gen[:, :1].copy()).to("cuda")
+        walls, per_step = [], []
+        for i in range(3 + SERVE_TIMED_STEPS):
+            before = rn.LAUNCHES
+            t1 = time.perf_counter()
+            logits, cache = step(params, tok, cache)
+            torch.cuda.synchronize()
+            per_step.append(rn.LAUNCHES - before)
+            if i >= 3:
+                walls.append((time.perf_counter() - t1) * 1e3)
+        if set(per_step) != {TP_NORMS_PER_STEP} or not bool(
+                torch.isfinite(logits).all()):
+            fail(f"17: rmsnorm launches a step {sorted(set(per_step))}, or "
+                 f"non-finite logits")
+        kernels, _, prof_wall_ms = profiled_step(
+            lambda: step(params, tok, cache))
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    idx = int(cache["idx"]) - 1
+    step_bytes = _step_bytes(params, cache, cfg, idx)
+    bound_ms = step_bytes / peak[0] * 1e3
+    step_ms = statistics.median(walls)
+    prof = None
+    if kernels:
+        busy = device_busy_ms(kernels)
+        prof = {"step_wall_ms": prof_wall_ms, "device_busy_ms": busy,
+                "idle_share": 1.0 - busy / prof_wall_ms,
+                "kernels": len(kernels),
+                "rmsnorm_launches": sum(1 for e in kernels
+                                        if "rmsnorm_kernel" in e.name),
+                "bound_share_of_busy": bound_ms / busy}
+    res = {"params": n, "param_bytes": nbytes, "init_s": init_s,
+           "tokens_per_s": out["tokens_per_s"], "loop_wall_s": out["wall_s"],
+           "launches": launches, "rmsnorm_per_step": TP_NORMS_PER_STEP,
+           "step_walls_ms": walls, "step_median_ms": step_ms,
+           "step_bytes": step_bytes, "step_bound_ms": bound_ms,
+           "peak_memory_gb": peak_gb, "profile": prof,
+           "first_logits_max_abs": float(first.float().abs().max()),
+           "first_logits_sum": float(first.float().sum())}
+    del params, cache, first, logits
+    torch.cuda.empty_cache()
+    print(f"[17] {TP_ARCH} at full depth ({n:,} parameters, "
+          f"{nbytes / 1e9:.2f} GB of bf16, drawn in {init_s:.1f} s) through "
+          f"serve_loop on the (1, 1) mesh (batch {b}, prompt "
+          f"{SERVE['prompt_len']}, {SERVE['max_new_tokens']} new tokens): "
+          f"{out['tokens_per_s']:.1f} tokens/s, {TP_NORMS_PER_STEP} rmsnorm "
+          f"launches a step, peak device memory {peak_gb:.2f} GB ({card})")
+    prof_txt = "no device activity recorded; not measured" if prof is None \
+        else (f"{prof['kernels']} kernels, device busy "
+              f"{prof['device_busy_ms']:.3f} ms of {prof_wall_ms:.3f} "
+              f"({100 * prof['idle_share']:.1f}% idle)")
+    print(f"     a decode step: median host wall {step_ms:.3f} ms over "
+          f"{SERVE_TIMED_STEPS}; bytes bound {bound_ms:.3f} ms "
+          f"({step_bytes} bytes); one profiled step: {prof_txt}")
+    return res
+
+
+def phase_tp(serve, models, rn, get_arch, peak, card):
+    """17: the tensor-parallel serving path on one card: rmsnorm at
+    qwen3-32b's rows (a TP = 4 rank's q/k-norm blocks included) against its
+    plain version; then, on a one-rank NCCL group and a (1, 1) ("data",
+    "model") mesh, tinyllama through the mesh's make_serve_step bit for
+    bit the mesh-less step, and qwen3-32b at full depth in bf16. The
+    rmsnorm count is set to 0 after the row checks and read at the end;
+    the mesh-less steps compared with do not count."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    rows, norm_err = phase_serve_kernels(rn, peak, TP_ROWS, tag="17",
+                                         library_rows=TP_LIBRARY_ROWS)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    rn.LAUNCHES = 0                          # the phase's main path
+    out = {"rmsnorm_rows": rows,
+           "model1": _tp_model1_bits(serve, models, rn, get_arch, mesh,
+                                     card),
+           "qwen3": _tp_qwen3(serve, models, rn, get_arch, mesh, peak, card)}
+    launches = rn.LAUNCHES
+    if launches == 0:
+        fail("17: the TP serving path never launched rmsnorm")
+    dist.destroy_process_group()
+    out.update({"launches": {"rmsnorm": launches},
+                "rmsnorm_max_abs_err": norm_err,
+                "seconds": time.perf_counter() - t0})
+    print(f"[17] launches on the phase's path: rmsnorm {launches}; "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -3234,6 +3486,10 @@ def main() -> None:
     trainer = phase_trainer(fs, sgd, q, rn, models, get_arch,
                             FederatedSession, peaks(name), card)
     clock.append(("16 trainer", time.perf_counter()))
+    # phase 17: tensor parallelism's serving path
+    torch.cuda.empty_cache()
+    tp = phase_tp(serve, models, rn, get_arch, peaks(name), card)
+    clock.append(("17 TP serving", time.perf_counter()))
     phase_s = {label: t - clock[i][1]
                for i, (label, t) in enumerate(clock[1:])}
     print(f"phase seconds ({card}): " + ", ".join(
@@ -3263,7 +3519,7 @@ def main() -> None:
                       "families": {"rmsnorm_rows": family_norms,
                                    "models": families},
                       "long_context": long_ctx, "federated_cnn": fl_cnn,
-                      "trainer": trainer,
+                      "trainer": trainer, "tp": tp,
                       "phase_seconds": phase_s,
                       "card": card}))
     kernels = [{
@@ -3315,9 +3571,11 @@ def main() -> None:
     family_launches = sum(r["launches"] for r in families.values())
     kernels[-1].update({
         "launches": lm_launches["rmsnorm"] + serve_out["launches"]
-        + family_launches + trainer["launches"]["rmsnorm"],
+        + family_launches + trainer["launches"]["rmsnorm"]
+        + tp["launches"]["rmsnorm"],
         "max_abs_err": max(lm_errs["rmsnorm"], serve_norm_err,
-                           family_norm_err, trainer["rmsnorm_max_abs_err"]),
+                           family_norm_err, trainer["rmsnorm_max_abs_err"],
+                           tp["rmsnorm_max_abs_err"]),
         "device_ms": norm["device_ms"],
         "library_device_ms": norm["library_device_ms"],
         "copy_device_ms": norm["copy_device_ms"],
@@ -3337,7 +3595,13 @@ def main() -> None:
                      "rows": {k: {key: r[key] for key in
                                   ("device_ms", "ms", "plain_ms",
                                    "bound_ms", "bound_by")}
-                              for k, r in family_norms.items()}}})
+                              for k, r in family_norms.items()}},
+        "tp": {"launches": tp["launches"]["rmsnorm"],
+               "per_step": tp["qwen3"]["rmsnorm_per_step"],
+               "rows": {k: {key: r.get(key) for key in
+                            ("device_ms", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "library_device_ms")}
+                        for k, r in tp["rmsnorm_rows"].items()}}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

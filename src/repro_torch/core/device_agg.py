@@ -16,12 +16,23 @@ The serverless architectures map onto mesh collectives:
 Every function runs in each rank of a ``DeviceMesh``
 (:mod:`repro_torch.launch.mesh`) on that rank's own tensors, and takes the
 mesh, since a collective runs on the process group of one mesh axis.
-M = the product of the replica axes' sizes (every axis but ``model``);
-ranks along ``model`` hold the same values and repeat the same work. Rank
-d owns shard d, d counted over the replica axes in their mesh order (the
-first axis slowest). The sum's order across ranks is the backend's (NCCL
+M = the product of the replica axes' sizes (every axis but ``model``).
+Rank d owns shard d, d counted over the replica axes in their mesh order
+(the first axis slowest). The sum's order across ranks is the backend's (NCCL
 or gloo), so results agree with a single-device mean to rounding, not bit
 for bit.
+
+The tensor-parallel (TP) operators run over the ``model`` axis, where each
+rank holds one block of a weight (:mod:`repro_torch.launch.partitioning`)
+and the activations between blocks are the same on every rank: Megatron's
+f/g pair (:class:`SumGrad`: identity forward, all-reduce backward, at the
+input of a column-parallel product; :class:`SumOut`: all-reduce forward,
+identity backward, at the output of a row-parallel one),
+:func:`all_gather_model` (vocabulary or width blocks joined; backward keeps
+this rank's block), :class:`GatherRows` (the batch blocks of the replica
+axes joined) and :func:`combine_partial_softmax` (one attention over a
+cache whose length is split: a max all-reduce, then sum all-reduces of the
+rescaled denominator and numerator).
 
 The host fold (:func:`make_fold_mesh`, :func:`mesh_fold_sum`) is the
 ``host_mesh`` aggregation engine's substrate: no collective, so its sums
@@ -196,6 +207,103 @@ def all_gather_shards(mesh, shard: torch.Tensor) -> torch.Tensor:
     for ax in reversed(replica_axes(mesh)):
         out = all_gather_flat(mesh, out, ax)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel operators over the ``model`` axis
+# ---------------------------------------------------------------------------
+
+class SumGrad(torch.autograd.Function):
+    """Identity forward; backward sums the gradient over ``groups`` (each
+    rank holds one part of the true gradient of a replicated input)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+class SumOut(torch.autograd.Function):
+    """All-reduce (sum) forward over ``group``; identity backward (the
+    gradient of the replicated sum is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherRows(torch.autograd.Function):
+    """All-gather of each rank's rows over the replica axes (rank d's rows
+    at block d); backward keeps this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, index):
+        ctx.rows, ctx.index = x.shape[0], index
+        full = all_gather_shards(mesh, x.reshape(-1))
+        return full.reshape((-1,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.index * ctx.rows
+        return g[lo:lo + ctx.rows], None, None
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather of each rank's block of dim ``dim`` over ``group`` (rank
+    r's block at position r); backward keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size, index):
+        ctx.dim, ctx.width, ctx.index = dim, x.shape[dim], index
+        out = torch.empty(size * x.numel(), dtype=x.dtype, device=x.device)
+        _all_gather(out, x.contiguous().reshape(-1), group)
+        return torch.cat(out.view((size,) + tuple(x.shape)).unbind(0),
+                         dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.index * ctx.width
+        return g.narrow(ctx.dim, lo, ctx.width), None, None, None, None
+
+
+def all_gather_model(mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ``model`` ranks' blocks of dim ``dim`` joined in rank order (the
+    decode logits' vocabulary blocks, a width-split embedding's columns);
+    backward keeps this rank's block of the gradient."""
+    return _GatherDim.apply(x, dim % x.ndim, mesh.get_group("model"),
+                            axis_sizes(mesh)["model"],
+                            mesh.get_local_rank("model"))
+
+
+def combine_partial_softmax(mesh, axes, m: torch.Tensor, l: torch.Tensor,
+                            acc: torch.Tensor) -> torch.Tensor:
+    """One softmax-weighted sum from the ranks' partial ones over ``axes``:
+    each rank's running max ``m``, denominator ``l`` (both (B, H, S)) and
+    numerator ``acc`` ((B, S, H, D)), f32, over its block of keys. A max
+    all-reduce, then a sum all-reduce of the denominator and of the
+    numerator, each rescaled by ``exp(m - max)``; ``l`` clamped at 1e-30
+    before the divide, as the chunked attention does."""
+    top = m.clone()
+    for ax in _axes(axes):
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.get_group(ax))
+    alpha = torch.exp(m - top)
+    l, acc = psum(mesh, {"l": l * alpha,
+                         "acc": acc * alpha.transpose(1, 2)[..., None]},
+                  axes).values()
+    return acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -20,13 +20,25 @@ over all of them, the first slowest) — entry for entry the reference's
 :class:`repro_torch.config.MeshConfig` (only the axis names and sizes
 count), and a tree is a dict under the port's dotted names (nested dicts
 for a cache). :func:`to_placements` turns a spec into the DTensor
-placements of a mesh. The trainer (:mod:`repro_torch.launch.train`)
-shards the batch and the optimizer state over the replica axes and does
-not yet apply the ``model`` axis to the forward.
+placements of a mesh.
+
+A rank holds the block of each leaf that its coordinates pick
+(:func:`model_block`, :func:`rank_block`). The trainer
+(:mod:`repro_torch.launch.train`) and the server
+(:mod:`repro_torch.launch.serve`) shard the batch over the replica axes
+and every weight over ``model`` by :func:`param_pspecs`
+(:func:`shard_params`, :func:`init_local_params`); the forward then runs
+tensor-parallel with explicit collectives
+(:mod:`repro_torch.core.device_agg`). The SSM, hybrid and
+encoder-decoder families are not split over ``model`` yet
+(:func:`check_tp_family`).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping
+
+import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig, ShardingPlan
 from repro_torch.core.device_agg import replica_axes, replica_size
@@ -260,6 +272,172 @@ def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
 def decode_token_pspec(shape: ShapeConfig, mesh) -> tuple:
     return (_batch_spec(shape.global_batch, mesh), None)
+
+
+# ---------------------------------------------------------------------------
+# A rank's blocks
+# ---------------------------------------------------------------------------
+
+#: the families whose forward runs split over ``model``
+TP_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_tp_family(cfg: ModelConfig, mesh) -> None:
+    """Raise for a family that is not split over ``model`` yet, when the
+    mesh's ``model`` axis has more than one rank."""
+    from repro_torch.models import registry
+    if _axis_size(mesh, "model") > 1 and (
+            cfg.family not in TP_FAMILIES or registry.is_encdec(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not run split over "
+            f"the model axis yet (ROADMAP queue 1: tensor parallelism for "
+            f"the SSM, hybrid and encoder-decoder families); use a mesh "
+            f"with model = 1")
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_index(mesh, axes: tuple[str, ...]) -> tuple[int, int]:
+    """``(index, count)``: this rank's block of a dim split over ``axes``,
+    counted in their order (the first slowest), and the number of
+    blocks."""
+    sizes = axis_sizes(mesh)
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+    return idx, math.prod(sizes[a] for a in axes)
+
+
+def _blocks(spec: tuple, shape, mesh, pick) -> tuple[slice, ...]:
+    """Each dim's slice for the rank, over the entries ``pick`` takes
+    (:func:`block_index` of the entry's axes)."""
+    out = []
+    for entry, n in zip(spec, shape):
+        axes = _entry_axes(entry)
+        if not axes or not pick(axes):
+            out.append(slice(None))
+            continue
+        idx, count = block_index(mesh, axes)
+        width = n // count
+        out.append(slice(idx * width, (idx + 1) * width))
+    return tuple(out)
+
+
+def model_block(spec: tuple, shape, mesh) -> tuple[slice, ...]:
+    """The slice of each dim whose entry names ``model`` (alone, or in a
+    tuple of axes, where the block follows the tuple's order); every other
+    dim whole."""
+    return _blocks(spec, shape, mesh, lambda axes: "model" in axes)
+
+
+def rank_block(spec: tuple, shape, mesh) -> tuple[slice, ...]:
+    """The slice of every dim that the spec splits, over any axes."""
+    return _blocks(spec, shape, mesh, lambda axes: True)
+
+
+def local_shape(spec: tuple, shape, mesh, model_only: bool = True
+                ) -> tuple[int, ...]:
+    """The shape of a rank's block (:func:`model_block`, or
+    :func:`rank_block` with ``model_only=False``); needs only the axis
+    sizes, so a ``MeshConfig`` will do."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for entry, n in zip(spec, shape):
+        axes = _entry_axes(entry)
+        if model_only and "model" not in axes:
+            axes = ()
+        out.append(n // math.prod(sizes[a] for a in axes))
+    return tuple(out)
+
+
+def _tp_specs(cfg: ModelConfig, mesh, plan: ShardingPlan | None) -> dict:
+    return param_pspecs(cfg, mesh, plan or ShardingPlan(grad_sharding="none"))
+
+
+def local_param_shapes(cfg: ModelConfig, mesh,
+                       plan: ShardingPlan | None = None) -> dict:
+    """``{name: shape}`` of a rank's ``model``-axis block of each leaf."""
+    from repro_torch.models.registry import param_shapes
+    specs = _tp_specs(cfg, mesh, plan)
+    return {name: local_shape(specs[name], shape, mesh)
+            for name, shape in param_shapes(cfg).items()}
+
+
+def model_sharded(cfg: ModelConfig, mesh,
+                  plan: ShardingPlan | None = None) -> dict:
+    """``{name: True}`` for each leaf split over ``model`` (a ``model``
+    axis of one rank splits none)."""
+    specs = _tp_specs(cfg, mesh, plan)
+    tp = _axis_size(mesh, "model")
+    return {name: tp > 1 and any("model" in _entry_axes(e) for e in spec)
+            for name, spec in specs.items()}
+
+
+def shard_params(params: Mapping, cfg: ModelConfig, mesh,
+                 plan: ShardingPlan | None = None) -> dict:
+    """Each whole leaf cut to this rank's ``model``-axis block (a copy); a
+    leaf already of its block's shape stays as it is, so a tree of blocks
+    passes through (as does every leaf when ``model`` has one rank)."""
+    check_tp_family(cfg, mesh)
+    specs = _tp_specs(cfg, mesh, plan)
+    local = local_param_shapes(cfg, mesh, plan)
+    out = {}
+    for name, t in params.items():
+        if tuple(t.shape) == local[name]:
+            out[name] = t
+        else:
+            out[name] = t[model_block(specs[name], t.shape, mesh)].clone()
+    return out
+
+
+def gather_params(params: Mapping, cfg: ModelConfig, mesh,
+                  plan: ShardingPlan | None = None) -> dict:
+    """The inverse of :func:`shard_params`: every leaf whole on every rank
+    (an all-gather over ``model`` of each split leaf)."""
+    from repro_torch.core.device_agg import all_gather_model
+    specs = model_sharded(cfg, mesh, plan)
+    pspecs = _tp_specs(cfg, mesh, plan)
+    out = {}
+    for name, t in params.items():
+        if not specs[name]:
+            out[name] = t
+            continue
+        dim = next(i for i, e in enumerate(pspecs[name])
+                   if "model" in _entry_axes(e))
+        out[name] = all_gather_model(mesh, t.detach(), dim)
+    return out
+
+
+def init_local_params(gen: torch.Generator, cfg: ModelConfig, mesh,
+                      plan: ShardingPlan | None = None) -> dict:
+    """This rank's blocks of ``init_params(gen, cfg)``: each leaf drawn
+    whole in ``init_params``' order, its block kept and the rest freed
+    before the next draw, so the blocks are those of the one-device init
+    and the peak is one whole leaf beside the blocks."""
+    from repro_torch.models import registry, transformer
+    check_tp_family(cfg, mesh)
+    if _axis_size(mesh, "model") == 1:
+        return registry.init_params(gen, cfg)
+    tp = _axis_size(mesh, "model")
+
+    def keep(leaf: str, t: torch.Tensor) -> torch.Tensor:
+        spec = _right_aligned(leaf, tuple(t.shape), cfg, tp)
+        if tuple(t.shape) == local_shape(spec, t.shape, mesh):
+            return t
+        return t[model_block(spec, t.shape, mesh)].clone()
+
+    return transformer.init_params(gen, cfg, keep=keep)
+
+
+def kv_length_axes(cache_specs_tree: Mapping) -> tuple[str, ...]:
+    """The mesh axes that split a decode cache's length (its ``k`` spec's
+    third entry), () when none does."""
+    spec = cache_specs_tree.get("k")
+    return _entry_axes(spec[2]) if spec else ()
 
 
 # ---------------------------------------------------------------------------

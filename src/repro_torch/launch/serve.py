@@ -1,5 +1,5 @@
-"""Batched serving: greedy cache decode of an LM of any family on one
-device.
+"""Batched serving: greedy cache decode of an LM of any family, on one
+device or a mesh.
 
 The counterpart of the reference's ``launch/serve.py``. ``make_serve_step``
 gives one decode step, ``(params, tokens, cache) -> (logits, cache)``;
@@ -9,8 +9,14 @@ encoder-decoder model's cache is built once from seeded frame embeddings
 (the encoder's one run). On the card every norm of a step runs the
 rmsnorm kernel (2·L + 1 launches a step for an attention stack, 2·L more
 under ``qk_norm``; ``models.norms_per_decode_step`` counts every family).
-The reference's partition specs (a mesh, a sharding plan) wait for the
-multi-device slice (ROADMAP queue 1, item 4).
+
+Under a mesh the step follows the reference's partition specs: each rank
+holds its ``model``-axis block of every weight (``param_pspecs``), its
+rows of the batch and its block of the cache (``cache_pspecs``: kv heads
+over ``model``, or the ring's length where the kv heads do not divide),
+the step runs tensor-parallel, and the logits are all-gathered to the
+whole (B, 1, V) on every rank. The SSM, hybrid and encoder-decoder
+families run on a mesh only with ``model`` = 1.
 
 Run (the smoke configuration, on the CPU)::
 
@@ -24,14 +30,17 @@ configuration; a full-width configuration is served by calling
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.config import ModelConfig, ShapeConfig, ShardingPlan
+from repro_torch.core import device_agg
 from repro_torch.core.sharding import resolve_device
+from repro_torch.launch import partitioning as parts
 from repro_torch.launch.hostenv import host_timer, maybe_preload_tcmalloc
-from repro_torch.models import encdec
+from repro_torch.models import encdec, meshctx
 from repro_torch.models import registry as models
 from repro_torch.models.transformer import map_tree
 
@@ -57,22 +66,64 @@ def cast_for_serving(params: dict, cfg: ModelConfig) -> dict:
 
 def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
                     cache_like=None, plan=None, donate: bool = True):
-    """One decode step on one device, ``(params, tokens, cache) -> (logits,
-    cache)``, under ``torch.inference_mode``. ``donate=True`` writes the
-    cache in place and returns it; ``donate=False`` leaves the caller's
-    cache, nested dicts included, as it was and returns a new one.
-    ``shape`` and ``cache_like`` shape the reference's partition specs; a
-    ``mesh`` or ``plan`` raises until the multi-device slice."""
-    if mesh is not None or plan is not None:
-        raise NotImplementedError(
-            "make_serve_step runs on one device; meshes and sharding plans "
-            "are not ported yet (ROADMAP queue 1, item 4)")
+    """One decode step, ``(params, tokens, cache) -> (logits, cache)``,
+    under ``torch.inference_mode``. ``donate=True`` writes the cache in
+    place and returns it; ``donate=False`` leaves the caller's cache,
+    nested dicts included, as it was and returns a new one.
+
+    With a ``mesh`` (called in every rank with the same global tokens),
+    the reference's specs for ``shape``, ``cache_like`` (the whole cache,
+    or its specs on the meta device) and ``plan`` (default ``none``) place
+    each input: a whole weight or cache leaf is cut to this rank's block
+    on the way in (a block passes through), the tokens to its rows. The
+    cache comes back as this rank's block and the logits whole. With
+    neither a mesh nor a plan it is the one-device step."""
+    if mesh is None and plan is None:
+        @torch.inference_mode()
+        def serve_step(params, tokens, cache):
+            if not donate:
+                cache = map_tree(torch.clone, cache)
+            return models.decode_step(params, cfg, tokens, cache)
+
+        return serve_step
+    if mesh is None:
+        raise ValueError("a sharding plan needs a mesh")
+    parts.check_tp_family(cfg, mesh)
+    plan = plan or ShardingPlan(grad_sharding="none")
+    c_specs = parts.cache_pspecs(cfg, shape, mesh, cache_like)
+    t_spec = parts.decode_token_pspec(shape, mesh)
+    length_axes = parts.kv_length_axes(c_specs)
+    tp = parts.axis_sizes(mesh).get("model", 1)
+    p_local = parts.local_param_shapes(cfg, mesh, plan)
+    rows = device_agg.replica_size(mesh) > 1 and t_spec[0] is not None
+    ctx = (lambda: meshctx.use_mesh(mesh)) if tp > 1 else \
+        contextlib.nullcontext
+
+    def place(spec, leaf, whole):
+        if isinstance(leaf, dict):
+            return {k: place(spec[k], v, whole[k]) for k, v in leaf.items()}
+        if tuple(leaf.shape) == parts.local_shape(spec, whole.shape, mesh,
+                                                  False):
+            return leaf
+        return leaf[parts.rank_block(spec, leaf.shape, mesh)].clone()
 
     @torch.inference_mode()
     def serve_step(params, tokens, cache):
+        if any(tuple(t.shape) != p_local[k] for k, t in params.items()):
+            params = parts.shard_params(params, cfg, mesh, plan)
         if not donate:
             cache = map_tree(torch.clone, cache)
-        return models.decode_step(params, cfg, tokens, cache)
+        cache = place(c_specs, cache, cache_like)
+        tokens = tokens[parts.rank_block(t_spec, tokens.shape, mesh)]
+        with ctx():
+            logits, cache = models.decode_step(params, cfg, tokens, cache,
+                                               length_axes=length_axes)
+        if logits.shape[-1] != cfg.vocab:
+            logits = device_agg.all_gather_model(mesh, logits, -1)
+        if rows:
+            logits = device_agg.GatherRows.apply(
+                logits, mesh, device_agg.replica_index(mesh))
+        return logits, cache
 
     return serve_step
 
@@ -85,7 +136,7 @@ def _sync(device: torch.device) -> None:
 def serve_loop(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 8,
                max_new_tokens: int = 16, max_len: int = 64, seed: int = 0,
                greedy: bool = True, device: str = "cuda",
-               params: dict | None = None) -> dict:
+               params: dict | None = None, mesh=None) -> dict:
     """Greedy decode: prefill via repeated decode steps, then generate.
 
     Returns ``generated`` ((batch, max_new_tokens) int32 numpy),
@@ -96,13 +147,21 @@ def serve_loop(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 8,
     weights come from a ``torch.Generator`` on the device seeded with
     ``seed``. Non-greedy decoding samples from a generator seeded with
     ``seed`` (the reference draws from ``jax.random``: other tokens).
+
+    With a ``mesh`` (every rank calls it alike) each rank holds its blocks
+    of the weights (drawn by ``partitioning.init_local_params``, or cut
+    from ``params``) and of the cache (``cache_pspecs``), and every rank
+    generates the same tokens.
     """
     dev = resolve_device(device)
     shape = ShapeConfig("serve", seq_len=max_len, global_batch=batch,
                         kind="decode")
     if params is None:
-        params = models.init_params(
-            torch.Generator(device=dev).manual_seed(seed), cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = models.init_params(gen, cfg) if mesh is None else \
+            parts.init_local_params(gen, cfg, mesh)
+    elif mesh is not None:
+        params = parts.shard_params(params, cfg, mesh)
     rng = np.random.default_rng(seed)
     prompt = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
     sampler = None if greedy else torch.Generator(device=dev).manual_seed(seed)
@@ -118,9 +177,12 @@ def serve_loop(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 8,
                 generator=torch.Generator(device=dev).manual_seed(seed + 1))
             cache = encdec.init_cache(cfg, batch, max_len, params=params,
                                       frames=frames, device=dev)
+            cache_like = map_tree(lambda t: t.to("meta"), cache)
         else:
-            cache = models.init_cache(cfg, batch, max_len, device=dev)
-        step_fn = make_serve_step(cfg, shape, cache_like=cache)
+            cache_like = models.cache_specs(cfg, batch, max_len)
+            with meshctx.use_mesh(mesh):
+                cache = models.init_cache(cfg, batch, max_len, device=dev)
+        step_fn = make_serve_step(cfg, shape, mesh, cache_like=cache_like)
         prompt_t = torch.from_numpy(prompt).to(dev)
         generated = []
         tok = prompt_t[:, :1]

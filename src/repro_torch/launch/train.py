@@ -2,9 +2,8 @@
 
 Every rank of a ``DeviceMesh`` (:mod:`repro_torch.launch.mesh`) runs the
 same program on its own device; the batch is split over the replica axes
-(every axis but ``model``; ranks along ``model`` repeat the computation,
-as the reference's ``shard_map`` step does). Two execution paths give the
-same aggregation semantics:
+(every axis but ``model``). Two execution paths give the same aggregation
+semantics:
 
   * ``jit_train_step`` (the reference's GSPMD path, here eager): the
     ShardingPlan picks the aggregation strategy exactly as the paper's
@@ -12,7 +11,10 @@ same aggregation semantics:
     full-gradient all-reduce (λ-FL/LIFL analogue); ``zero1`` = optimizer
     state sharded over the replica axes — reduce-scatter, AdamW on this
     rank's flat shard, all-gather (GradsSharding); ``zero3`` = parameters
-    held as flat shards too, all-gathered before use. The collectives are
+    held as flat shards too, all-gathered before use. Over ``model`` the
+    forward is tensor-parallel: each rank holds its block of every weight
+    (``partitioning.shard_params``), and the flat vectors the plans shard
+    are those of its blocks. The collectives are
     :mod:`repro_torch.core.device_agg`'s, on flat vectors from
     :func:`repro_torch.core.sharding.flatten`, so the op order can be read
     here; no FSDP wrapper hides it.
@@ -20,7 +22,9 @@ same aggregation semantics:
   * ``make_shardmap_train_step`` (paper-faithful demonstration): explicit
     flatten → reduce-scatter(mean) → per-rank |θ|/M shard SGD-momentum
     step through the fused-SGD kernel (optionally QSGD-compressed through
-    the quantize/dequantize kernels) → all-gather → unflatten.
+    the quantize/dequantize kernels) → all-gather → unflatten. Its
+    parameters are whole on every rank, as in the reference; ranks along
+    ``model`` repeat the computation.
 
 The training loop adds the production substrate: checkpoint/restart
 (atomic, manifested), deterministic data restart, metric logging.
@@ -37,6 +41,7 @@ Run (the smoke configuration, on the CPU)::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 from dataclasses import replace
 from typing import Any, Mapping
@@ -52,6 +57,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import partitioning as parts
 from repro_torch.launch.hostenv import host_timer, maybe_preload_tcmalloc
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import meshctx
 from repro_torch.models import registry as models
 from repro_torch.optim import Optimizer, adamw, apply_updates
 from repro_torch.optim.optimizers import global_norm
@@ -95,10 +101,16 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
 # Flat-shard layout of the sharded plans
 # ---------------------------------------------------------------------------
 
-def flat_spec(cfg: ModelConfig) -> FlatSpec:
+def flat_spec(cfg: ModelConfig, mesh=None) -> FlatSpec:
     """The flat layout of ``cfg``'s parameters (from their specs on the
-    meta device: nothing is allocated)."""
-    return flatten(models.param_specs(cfg))[1]
+    meta device: nothing is allocated); with a ``mesh``, of a rank's
+    ``model``-axis blocks of them."""
+    specs = models.param_specs(cfg)
+    if mesh is not None:
+        shapes = parts.local_param_shapes(cfg, mesh)
+        specs = {k: torch.empty(shapes[k], dtype=t.dtype, device="meta")
+                 for k, t in specs.items()}
+    return flatten(specs)[1]
 
 
 class _Shards:
@@ -130,6 +142,20 @@ class _Shards:
     def shard(self, tree: Mapping) -> torch.Tensor:
         return self.pack(tree, self.lo, self.lo + self.k)
 
+    def square_sums(self, shard: torch.Tensor, split: Mapping
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The sums of squares of this rank's shard over the leaves that
+        ``split`` marks (split over ``model``) and over the others."""
+        sums = [shard.new_zeros(()), shard.new_zeros(())]
+        lo, hi, off = self.lo, self.lo + self.k, 0
+        for name, size in zip(self.spec.names, self.spec.sizes):
+            a, b = max(off, lo), min(off + size, hi)
+            if a < b:
+                sums[0 if split[name] else 1] += torch.sum(
+                    torch.square(shard[a - lo:b - lo]))
+            off += size
+        return sums[0], sums[1]
+
     def gather(self, shard: torch.Tensor, dtypes: bool = True) -> dict:
         """The whole tree from every rank's shard (leaves in the spec's
         types, or f32 with ``dtypes=False``)."""
@@ -153,14 +179,25 @@ def _map_state(fn, state: Tree) -> Tree:
     return state
 
 
+def _tp(mesh) -> int:
+    return parts.axis_sizes(mesh).get("model", 1)
+
+
 def place_state(cfg: ModelConfig, mesh, plan: ShardingPlan, params: Tree,
                 opt_state: Tree) -> tuple[Tree, Tree]:
-    """``(params, opt_state)`` in the plan's layout: ``zero1`` shards the
-    optimizer state, ``zero3`` the parameters too, each part to this
-    rank's flat f32 shard; a part already in that layout stays as it is."""
+    """``(params, opt_state)`` in the plan's layout: every whole leaf cut to
+    this rank's ``model``-axis block (``partitioning.shard_params``), then
+    ``zero1`` shards the optimizer state, ``zero3`` the parameters too,
+    each part to this rank's flat f32 shard of its blocks; a part already
+    in that layout stays as it is."""
+    if _tp(mesh) > 1:
+        to_blocks = lambda t: parts.shard_params(t, cfg, mesh) \
+            if isinstance(t, Mapping) else t
+        params = to_blocks(params)
+        opt_state = _map_state(to_blocks, opt_state)
     if plan.grad_sharding == "none":
         return params, opt_state
-    sh = _Shards(mesh, flat_spec(cfg))
+    sh = _Shards(mesh, flat_spec(cfg, mesh))
     to_shard = lambda t: sh.shard(t) if isinstance(t, Mapping) else t
     if plan.grad_sharding == "zero3":
         params = to_shard(params)
@@ -170,12 +207,17 @@ def place_state(cfg: ModelConfig, mesh, plan: ShardingPlan, params: Tree,
 def gather_state(cfg: ModelConfig, mesh, plan: ShardingPlan, params: Tree,
                  opt_state: Tree) -> tuple[Tree, Tree]:
     """The inverse of :func:`place_state`: whole trees on every rank."""
-    if plan.grad_sharding == "none":
-        return params, opt_state
-    sh = _Shards(mesh, flat_spec(cfg))
-    to_tree = lambda t, dtypes=False: t if isinstance(t, Mapping) \
-        else sh.gather(t, dtypes)
-    return to_tree(params, True), _map_state(to_tree, opt_state)
+    if plan.grad_sharding != "none":
+        sh = _Shards(mesh, flat_spec(cfg, mesh))
+        to_tree = lambda t, dtypes=False: t if isinstance(t, Mapping) \
+            else sh.gather(t, dtypes)
+        params, opt_state = to_tree(params, True), _map_state(to_tree,
+                                                              opt_state)
+    if _tp(mesh) > 1:
+        whole = lambda t: parts.gather_params(t, cfg, mesh) \
+            if isinstance(t, Mapping) else t
+        params, opt_state = whole(params), _map_state(whole, opt_state)
+    return params, opt_state
 
 
 def _local_batch(batch: Mapping, specs: Mapping, mesh) -> dict:
@@ -220,37 +262,68 @@ def jit_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     parameters are written into the old ones (``none``, ``zero3``).
     ``opt_state_like`` is accepted for the reference's signature; the
     layout follows from the plan alone.
+
+    With ``model`` > 1 the parameters and the optimizer state are this
+    rank's ``model``-axis blocks (the plans shard the flat vector of its
+    blocks over the replica axes, as the reference's ``opt_state_pspecs``
+    composes them), the forward runs tensor-parallel, and the clipping
+    norm counts each logical element once: the squares of the split
+    leaves summed over ``model``, those of the replicated leaves (norms,
+    router, unsplit biases) taken once.
     """
     gs = plan.grad_sharding
     if gs not in PLANS:
         raise ValueError(f"grad_sharding must be one of {PLANS}, got {gs!r}")
+    parts.check_tp_family(cfg, mesh)
     rep = device_agg.replica_axes(mesh)
     b_specs = parts.batch_pspecs(cfg, shape, mesh)
-    sh = _Shards(mesh, flat_spec(cfg)) if gs != "none" else None
+    tp = _tp(mesh)
+    split = parts.model_sharded(cfg, mesh)
+    sh = _Shards(mesh, flat_spec(cfg, mesh)) if gs != "none" else None
+    ctx = (lambda: meshctx.use_mesh(mesh)) if tp > 1 else \
+        contextlib.nullcontext
+
+    def norm_of(sq_split, sq_rest, axes):
+        """The whole gradient's norm from this rank's sums of squares of
+        the split leaves and of the others, its data over ``axes``."""
+        return torch.sqrt(device_agg.psum(mesh, sq_split, axes + ("model",))
+                          + device_agg.psum(mesh, sq_rest, axes))
 
     def step(params, opt_state, batch):
         params, opt_state = place_state(cfg, mesh, plan, params, opt_state)
         full = sh.gather(params) if gs == "zero3" else params
-        _, metrics, grads = _value_and_grad(
-            cfg, full, _local_batch(batch, b_specs, mesh))
+        with ctx():
+            _, metrics, grads = _value_and_grad(
+                cfg, full, _local_batch(batch, b_specs, mesh))
         with torch.no_grad():
             metrics = device_agg.pmean(mesh, metrics, rep)
             if gs == "none":
                 grads = device_agg.pmean(mesh, grads, rep)
+                norm = None
+                if tp > 1:
+                    zero = torch.zeros((), device=params["embed"].device)
+                    norm = norm_of(*(sum(
+                        (torch.sum(torch.square(g.to(torch.float32)))
+                         for k, g in grads.items() if split[k] == s), zero)
+                        for s in (True, False)), ())
                 updates, opt_state = optimizer.update(grads, opt_state,
-                                                      params)
+                                                      params, norm=norm)
                 if donate:
                     for k, p in params.items():
                         p.add_(updates[k].to(p.dtype))
                 else:
                     params = apply_updates(params, updates)
-                return params, opt_state, dict(metrics,
-                                               grad_norm=_gnorm(grads))
+                return params, opt_state, dict(
+                    metrics, grad_norm=_gnorm(grads) if norm is None
+                    else norm)
             g_shard = device_agg.reduce_scatter_mean_flat(mesh,
                                                           sh.flat(grads))
             del grads
-            norm = torch.sqrt(device_agg.psum(
-                mesh, torch.sum(torch.square(g_shard)), rep))
+            if tp > 1:
+                norm = norm_of(*sh.square_sums(g_shard, split), rep)
+            else:
+                norm = torch.sqrt(device_agg.psum(
+                    mesh, torch.sum(torch.square(g_shard)), rep))
             p_shard = params if gs == "zero3" else sh.shard(params)
             updates, opt_state = optimizer.update(g_shard, opt_state,
                                                   p_shard, norm=norm)

@@ -33,10 +33,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import device_agg as _da
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.launch import partitioning as _pt
+from repro_torch.models import meshctx
 
 NEG_INF = -1e30
 
@@ -45,12 +49,28 @@ NEG_INF = -1e30
 # Initializers
 # ---------------------------------------------------------------------------
 
+#: a leaf of more elements is drawn one leading index at a time: the f32
+#: draw of qwen3-32b's whole (64, 5120, 25600) ``w1`` would take 34 GB
+CHUNKED_DRAW_ELEMS = 1 << 31
+
+
 def dense_init(gen: torch.Generator, shape, in_axis_size: int,
                dtype: torch.dtype) -> torch.Tensor:
     """Normal(0, 1/in_axis_size) on the generator's device."""
     scale = 1.0 / math.sqrt(max(1, in_axis_size))
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale
-            ).to(dtype)
+    if math.prod(shape) <= CHUNKED_DRAW_ELEMS:
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale
+                ).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = (torch.randn(shape[1:], generator=gen, device=gen.device)
+                  * scale).to(dtype)
+    return out
+
+
+def keep_whole(leaf: str, t: torch.Tensor) -> torch.Tensor:
+    """The init functions' default ``keep``: every leaf whole."""
+    return t
 
 
 def embed_init(gen: torch.Generator, shape, dtype: torch.dtype
@@ -282,26 +302,85 @@ def attn_shapes(cfg: ModelConfig) -> dict:
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-              lead: tuple = ()) -> dict:
-    """The attention weights; ``lead`` prepends axes (the layer stack)."""
+              lead: tuple = (), keep=keep_whole) -> dict:
+    """The attention weights; ``lead`` prepends axes (the layer stack).
+    ``keep(leaf, tensor)`` takes each leaf as it is drawn and returns what
+    is kept of it (a rank's block: ``partitioning.init_local_params``)."""
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
     shapes = attn_shapes(cfg)
     fan_in = {"wq": d, "wk": d, "wv": d, "wo": h * hd}
-    p = {k: dense_init(gen, lead + shapes[k], fan_in[k], dtype)
+    p = {k: keep(k, dense_init(gen, lead + shapes[k], fan_in[k], dtype))
          for k in ("wq", "wk", "wv", "wo")}
     dev = gen.device
     for k in ("bq", "bk", "bv"):
         if k in shapes:
-            p[k] = torch.zeros(lead + shapes[k], dtype=dtype, device=dev)
+            p[k] = keep(k, torch.zeros(lead + shapes[k], dtype=dtype,
+                                       device=dev))
     for k in ("qnorm", "knorm"):
         if k in shapes:
             p[k] = torch.ones(lead + shapes[k], dtype=dtype, device=dev)
     return p
 
 
-def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
-    """x: (B,S,D) -> q (B,S,H,hd), k,v (B,S,KH,hd), rope applied."""
+def _split_axis(local: int, whole: int):
+    """The current mesh's ``model`` axis when a weight's local width is a
+    block of its whole width (the layer runs split), else None."""
+    if local == whole:
+        return None
+    ax = meshctx.model_axis()
+    if ax is None:
+        raise ValueError(f"a weight of width {local} (of {whole}) needs a "
+                         f"mesh with a model axis (meshctx.use_mesh)")
+    return ax
+
+
+def row_sum(partial: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel product's partial sums joined over the ``model``
+    ranks of ``group`` (Megatron's g), added in f32 and rounded once to
+    the compute type, as one device's product accumulates in f32 and
+    rounds once."""
+    return _da.SumOut.apply(partial.to(torch.float32), group
+                            ).to(partial.dtype)
+
+
+def _sum_grad(t: torch.Tensor, ax) -> torch.Tensor:
+    """``t`` with its gradient summed over the ``model`` ranks (Megatron's
+    f: a replicated input of a split layer)."""
+    return _da.SumGrad.apply(t, (ax.group,))
+
+
+def _kv_heads(t: torch.Tensor, cfg: ModelConfig, h_local: int, ax
+              ) -> torch.Tensor:
+    """The kv heads this rank's q heads read, one a q head, from a tensor
+    holding all of ``cfg.n_kv_heads`` (its dim 2): q head h of the whole
+    model reads kv head h // (H/KH), and this rank holds q heads
+    [index·h_local, (index+1)·h_local)."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    idx = (ax.index * h_local + torch.arange(h_local, device=t.device)
+           ) // group
+    return t.index_select(2, idx)
+
+
+def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
+                select_kv: bool = True):
+    """x: (B,S,D) -> q (B,S,H,hd), k,v (B,S,KH,hd), rope applied.
+
+    Split over ``model`` (``wq`` holds a block of the heads) it is
+    column-parallel: x's gradient is summed over the ranks, and q holds
+    this rank's heads. Where the kv heads are split too, k and v hold this
+    rank's; where they are not (``n_kv_heads`` not divisible), the
+    replicated ``wk``/``wv`` give every kv head, and with ``select_kv``
+    k and v are cut to the one each local q head reads. A replicated leaf
+    inside the split layer (q/k norms, unsplit kv weights) has its
+    gradient summed over the ranks."""
     cd = cfg.compute_dtype
+    ax = _split_axis(p["wq"].shape[-2], cfg.n_heads)
+    if ax is not None:
+        x = _sum_grad(x, ax)
+        kv_split = p["wk"].shape[-2] != cfg.n_kv_heads
+        p = {k: t if k in ("wq", "wo", "bq") or (kv_split and k in (
+            "wk", "wv", "bk", "bv")) else _sum_grad(t, ax)
+             for k, t in p.items()}
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
@@ -314,11 +393,18 @@ def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
         k = rmsnorm(k, p["knorm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if select_kv and ax is not None and k.shape[2] == cfg.n_kv_heads:
+        k = _kv_heads(k, cfg, q.shape[2], ax)
+        v = _kv_heads(v, cfg, q.shape[2], ax)
     return q, k, v
 
 
 def attn_out(p: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cfg.compute_dtype))
+    """The output projection; row-parallel (one all-reduce over ``model``)
+    when ``wo`` holds a block of the heads."""
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cfg.compute_dtype))
+    ax = _split_axis(p["wo"].shape[-3], cfg.n_heads)
+    return out if ax is None else row_sum(out, ax.group)
 
 
 def self_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -331,31 +417,82 @@ def self_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return attn_out(p, o, cfg)
 
 
+def _attention_partial(q, k, v, bias):
+    """Softmax attention of q (B,S,H,D) over one block of keys k, v
+    (B,T,H,D) with the additive f32 ``bias`` (S,T): the block's running
+    max and denominator (B,H,S) and numerator (B,S,H,D), f32, the
+    probabilities rounded to v's type before the PV product (as
+    :func:`attention_chunked`)."""
+    f32 = torch.float32
+    s = torch.einsum("bshd,bthd->bhst", q.to(f32), k.to(f32)) \
+        / math.sqrt(q.shape[-1]) + bias[None, None]
+    m = torch.amax(s, dim=-1)
+    e = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhst,bthd->bshd", e.to(v.dtype).to(f32), v.to(f32))
+    return m, torch.sum(e, dim=-1), acc
+
+
 def decode_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                            k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           idx: torch.Tensor) -> torch.Tensor:
+                           idx: torch.Tensor, length_axes: tuple = ()
+                           ) -> torch.Tensor:
     """One-token decode against a (possibly ring-buffer) KV cache.
 
     x: (B,1,D); k_cache/v_cache: (B,W,KH,hd); idx: a 0-d integer tensor on
     x's device, the tokens already cached. Writes this token's k and v
     into ring slot ``idx % W`` of the caches, in place, and returns the
     block's output (B,1,D). Every index stays on the device: no host sync.
+
+    Under a mesh the caches are this rank's block, in either layout of
+    ``partitioning.cache_pspecs``: this rank's kv heads (nothing crosses
+    ranks), or, with ``length_axes`` (the axes that split the length, the
+    first slowest), this rank's block of the ring's W slots. Then the
+    rank that holds slot ``idx % W`` writes it (the others write back what
+    they hold), every rank scores all heads' queries against its slots,
+    and :func:`device_agg.combine_partial_softmax` joins the blocks.
     """
-    w = k_cache.shape[1]
     pos = idx.reshape(1)
-    q, k, v = project_qkv(p, x, cfg, pos)
+    q, k, v = project_qkv(p, x, cfg, pos, select_kv=False)
+    ax = _split_axis(q.shape[2], cfg.n_heads)
+    w_local = w = k_cache.shape[1]
+    if length_axes:
+        block, count = _pt.block_index(meshctx.get_mesh(), length_axes)
+        lo, w = block * w_local, count * w_local
     slot = torch.remainder(pos, w).long()
+    if length_axes:
+        slot = slot - lo
+        own = (slot >= 0) & (slot < w_local)
+        slot = torch.clamp(slot, 0, w_local - 1)
+        k = torch.where(own, k.to(k_cache.dtype), k_cache.index_select(1, slot))
+        v = torch.where(own, v.to(v_cache.dtype), v_cache.index_select(1, slot))
     k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
     # absolute position held by each ring slot after this write; idx - j
     # is negative for slots not yet filled, so the modulo must floor
-    j = torch.arange(w, device=idx.device)
+    j = torch.arange(w_local, device=idx.device)
+    if length_axes:
+        j = j + lo                       # this rank's slots of the ring
     k_pos = idx - torch.remainder(idx - j, w)
     k_valid = k_pos >= torch.clamp(idx - w + 1, min=0)
-    o = attention_dense(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                        q_pos=pos, k_pos=k_pos, causal=True,
-                        window=cfg.sliding_window, k_valid=k_valid,
-                        grouped=cfg.decode_grouped_attn)
+    kk, vv = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    if not length_axes:
+        if ax is not None and kk.shape[2] == cfg.n_kv_heads:
+            kk = _kv_heads(kk, cfg, q.shape[2], ax)
+            vv = _kv_heads(vv, cfg, q.shape[2], ax)
+        o = attention_dense(q, kk, vv, q_pos=pos, k_pos=k_pos, causal=True,
+                            window=cfg.sliding_window, k_valid=k_valid,
+                            grouped=cfg.decode_grouped_attn)
+        return attn_out(p, o, cfg)
+    # the length is split: every head's scores against this rank's slots
+    qa = q if ax is None else _da.all_gather_model(ax.mesh, q, 2)
+    bias = _mask_bias(pos, k_pos, causal=True, window=cfg.sliding_window,
+                      k_valid=k_valid)
+    m, l, acc = _attention_partial(qa, _expand_kv(kk, qa.shape[2]),
+                                   _expand_kv(vv, qa.shape[2]), bias)
+    o = _da.combine_partial_softmax(meshctx.get_mesh(), length_axes, m, l,
+                                    acc).to(q.dtype)
+    if ax is not None:
+        o = o[:, :, ax.index * q.shape[2]:(ax.index + 1) * q.shape[2]]
     return attn_out(p, o, cfg)
 
 
@@ -372,42 +509,101 @@ def mlp_shapes(cfg: ModelConfig) -> dict:
 
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-             lead: tuple = ()) -> dict:
+             lead: tuple = (), keep=keep_whole) -> dict:
     fan_in = {"w1": cfg.d_model, "w2": cfg.d_ff, "w3": cfg.d_model}
-    return {k: dense_init(gen, lead + shape, fan_in[k], dtype)
+    return {k: keep(k, dense_init(gen, lead + shape, fan_in[k], dtype))
             for k, shape in mlp_shapes(cfg).items()}
 
 
 def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The FFN; split over ``model`` (``w1`` holds a block of d_ff),
+    ``w1``/``w3`` are column-parallel and ``w2`` row-parallel."""
     cd = cfg.compute_dtype
+    ax = _split_axis(p["w1"].shape[-1], cfg.d_ff)
+    if ax is not None:
+        x = _sum_grad(x, ax)
     h = torch.einsum("bsd,df->bsf", x, p["w1"].to(cd))
     if cfg.gated_mlp:
         g = torch.einsum("bsd,df->bsf", x, p["w3"].to(cd))
         h = F.silu(h) * g
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
-    return torch.einsum("bsf,fd->bsd", h, p["w2"].to(cd))
+    out = torch.einsum("bsf,fd->bsd", h, p["w2"].to(cd))
+    return out if ax is None else row_sum(out, ax.group)
 
 
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cd
-                 ) -> torch.Tensor:
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cd,
+                 cfg: ModelConfig | None = None) -> torch.Tensor:
+    """The rows of ``tokens``. Split over ``model`` (``cfg`` given): a
+    vocabulary block looks up the tokens it holds, zeros elsewhere, and one
+    all-reduce joins them (exact: one nonzero addend); a ``d_model`` block
+    looks up its columns and an all-gather joins them."""
+    if cfg is not None:
+        ax = _split_axis(table.shape[0], cfg.vocab)
+        if ax is not None:
+            rows = table.shape[0]
+            local = tokens - ax.index * rows
+            held = (local >= 0) & (local < rows)
+            e = F.embedding(torch.clamp(local, 0, rows - 1), table)
+            e = torch.where(held[..., None], e, torch.zeros_like(e))
+            return _da.SumOut.apply(e, ax.group).to(cd)
+        ax = _split_axis(table.shape[1], cfg.d_model)
+        if ax is not None:
+            return _da.all_gather_model(
+                ax.mesh, F.embedding(tokens, table), -1).to(cd)
     return F.embedding(tokens, table).to(cd)
 
 
-def lm_logits(x: torch.Tensor, head: torch.Tensor, cd) -> torch.Tensor:
+def lm_logits(x: torch.Tensor, head: torch.Tensor, cd,
+              cfg: ModelConfig | None = None) -> torch.Tensor:
+    """x @ head. Split over ``model`` (``cfg`` given): a vocabulary block of
+    the head is column-parallel and gives this rank's block of the logits;
+    a ``d_model`` block is row-parallel (this rank's columns of x, one
+    all-reduce) and gives them whole."""
+    if cfg is not None:
+        ax = _split_axis(head.shape[1], cfg.vocab)
+        if ax is not None:
+            return torch.einsum("bsd,dv->bsv", _sum_grad(x, ax), head.to(cd))
+        ax = _split_axis(head.shape[0], cfg.d_model)
+        if ax is not None:
+            d = head.shape[0]
+            xs = _sum_grad(x, ax)[..., ax.index * d:(ax.index + 1) * d]
+            return row_sum(torch.einsum("bsd,dv->bsv", xs, head.to(cd)),
+                           ax.group)
     return torch.einsum("bsd,dv->bsv", x, head.to(cd))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean next-token CE. logits (B,S,V) any float type; labels (B,S)."""
+                  mask: torch.Tensor | None = None,
+                  vocab: int | None = None) -> torch.Tensor:
+    """Mean next-token CE. logits (B,S,V) any float type; labels (B,S).
+
+    Logits that hold this rank's block of a ``vocab``-wide vocabulary
+    (the TP forward's) take the vocabulary-parallel form: the local max
+    and a max all-reduce, the local sum of exponentials and a sum
+    all-reduce, the label's logit from the rank that holds it and a sum
+    all-reduce; the logits are never gathered."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ax = None if vocab is None else _split_axis(logits.shape[-1], vocab)
+    if ax is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        top = torch.amax(logits.detach(), dim=-1)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=ax.group)
+        se = torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+        lse = top + torch.log(_da.SumOut.apply(se, ax.group))
+        cols = logits.shape[-1]
+        local = labels.long() - ax.index * cols
+        held = (local >= 0) & (local < cols)
+        ll = torch.gather(logits, -1,
+                          torch.clamp(local, 0, cols - 1)[..., None])[..., 0]
+        ll = _da.SumOut.apply(torch.where(held, ll, torch.zeros_like(ll)),
+                              ax.group)
     nll = lse - ll
     if mask is None:
         return torch.mean(nll)

@@ -16,22 +16,23 @@ combine gathers each assignment's row with the expert index clamped into
 range, as JAX clamps ``out_buf[e_idx, p_idx]``, and multiplies by a zero
 weight where the assignment was dropped.
 
-``cfg.moe_dispatch == "local"`` with a mesh set
-(:func:`repro_torch.models.meshctx.use_mesh`) that has a ``model`` axis
-runs the dispatch per rank: the rank routes only its batch shard (the
-whole batch when the replica axes do not divide it), through its d_ff
-slice of the experts, and one all-reduce over ``model`` combines the
-slices. With no mesh set it runs the global dispatch, as the reference
-does.
+Under a mesh with a ``model`` axis
+(:func:`repro_torch.models.meshctx.use_mesh`) each rank holds a block of
+the experts' d_ff (``w1``/``w3`` column-, ``w2`` row-parallel) and routes
+its own rows through it; one all-reduce over ``model`` joins the blocks.
+``cfg.moe_dispatch == "local"`` runs this path under any such mesh, also
+one whose ``model`` axis has one rank; the global dispatch runs it where
+the weights are split. The router stays replicated.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.core import device_agg
+from repro_torch.models import meshctx
+from repro_torch.models.layers import dense_init, keep_whole, row_sum
 
 #: leaves that stay f32 whatever ``cfg.param_dtype``: the router
 F32_LEAVES = ("router",)
@@ -46,13 +47,15 @@ def moe_shapes(cfg: ModelConfig) -> dict:
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-             lead: tuple = ()) -> dict:
-    """The MoE weights; ``lead`` prepends axes (the layer stack)."""
+             lead: tuple = (), keep=keep_whole) -> dict:
+    """The MoE weights; ``lead`` prepends axes (the layer stack);
+    ``keep`` as in ``layers.attn_init``."""
     shapes = moe_shapes(cfg)
     fan_in = {"router": cfg.d_model, "w1": cfg.d_model, "w2": cfg.d_ff,
               "w3": cfg.d_model}
-    return {k: dense_init(gen, lead + shape, fan_in[k],
-                          torch.float32 if k in F32_LEAVES else dtype)
+    return {k: keep(k, dense_init(gen, lead + shape, fan_in[k],
+                                  torch.float32 if k in F32_LEAVES
+                                  else dtype))
             for k, shape in shapes.items()}
 
 
@@ -84,102 +87,37 @@ def route(p: dict, x: torch.Tensor, cfg: ModelConfig):
 def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B,S,D) -> (B,S,D). Top-k routing with capacity dropping.
 
-    ``cfg.moe_dispatch == "local"`` under a mesh with a ``model`` axis
-    runs the dispatch per rank (:func:`_moe_block_local`): tokens stay on
-    their batch shard, the position cumsum and the capacity are local, and
-    the expert FFN is split on d_ff with one all-reduce — the global
-    dispatch otherwise moves the whole (E, Cap, D) buffer every layer."""
-    if cfg.moe_dispatch == "local":
-        from repro_torch.models import meshctx
-        mesh = meshctx.get_mesh()
-        if mesh is not None and "model" in mesh.mesh_dim_names:
-            return _moe_block_local(p, x, cfg, mesh)
+    Under a mesh with a ``model`` axis whose ranks hold blocks of d_ff (or
+    with ``cfg.moe_dispatch == "local"`` under any mesh with a ``model``
+    axis) the dispatch runs split (:func:`_moe_block_local`): the rank's
+    rows, local capacity, the expert FFN on its d_ff block and one
+    all-reduce — the reference's global dispatch under GSPMD otherwise
+    moves the whole (E, Cap, D) buffer every layer."""
+    mesh = meshctx.get_mesh()
+    has_model = mesh is not None and "model" in (mesh.mesh_dim_names or ())
+    if has_model and (cfg.moe_dispatch == "local"
+                      or p["w1"].shape[-1] != cfg.d_ff):
+        return _moe_block_local(p, x, cfg, mesh)
     return _moe_block_global(p, x, cfg)
-
-
-class _SumGrad(torch.autograd.Function):
-    """Identity forward; backward sums the gradient over ``groups`` (each
-    rank holds one part of the true gradient of a replicated input)."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        for group in ctx.groups:
-            dist.all_reduce(g, group=group)
-        return g, None
-
-
-class _SumOut(torch.autograd.Function):
-    """All-reduce (sum) forward over ``group``; identity backward (the
-    gradient of the replicated sum is the same on every rank)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherRows(torch.autograd.Function):
-    """All-gather of each rank's rows over the replica axes (rank d's rows
-    at block d); backward keeps this rank's block of the gradient."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, index):
-        from repro_torch.core import device_agg
-        ctx.rows, ctx.index = x.shape[0], index
-        full = device_agg.all_gather_shards(mesh, x.reshape(-1))
-        return full.reshape((-1,) + tuple(x.shape[1:]))
-
-    @staticmethod
-    def backward(ctx, g):
-        lo = ctx.index * ctx.rows
-        return g[lo:lo + ctx.rows], None, None
 
 
 def _moe_block_local(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
                      ) -> torch.Tensor:
-    """The per-rank dispatch. Inputs and output are replicated on every
-    rank; the gradients of x and of the expert weights come back whole and
-    replicated (each rank's part summed over the ranks that hold parts)."""
-    from repro_torch.core import device_agg
+    """The split dispatch: this rank's rows (the same on every rank of its
+    ``model`` group) routed through its d_ff block of the experts
+    (``w1``/``w3`` column-, ``w2`` row-parallel), one all-reduce over
+    ``model``. The gradients of x and of the replicated router are summed
+    over the ``model`` ranks, each of which holds one part of them."""
     from repro_torch.launch.mesh import axis_sizes
-
-    rep = device_agg.replica_axes(mesh)
-    dp = device_agg.replica_size(mesh)
     tp = axis_sizes(mesh)["model"]
-    if cfg.d_ff % tp:
-        raise ValueError(f"the model axis ({tp}) must divide d_ff "
-                         f"({cfg.d_ff}) for the local MoE dispatch")
-    split = x.shape[0] % dp == 0 and x.shape[0] >= dp
+    if p["w1"].shape[-1] * tp != cfg.d_ff:
+        raise ValueError(f"the model axis ({tp}) must hold d_ff "
+                         f"({cfg.d_ff}) in blocks of {p['w1'].shape[-1]}: "
+                         f"shard the weights (partitioning.shard_params)")
     model = mesh.get_group("model")
-    groups = ([mesh.get_group(a) for a in rep] if split else []) + [model]
-
-    x = _SumGrad.apply(x, groups)
-    if split:
-        index, rows = device_agg.replica_index(mesh), x.shape[0] // dp
-        x = x[index * rows:(index + 1) * rows]
-    f = cfg.d_ff // tp
-    cols = slice(mesh.get_local_rank("model") * f,
-                 (mesh.get_local_rank("model") + 1) * f)
-    pl = {"router": _SumGrad.apply(p["router"], groups),
-          "w1": _SumGrad.apply(p["w1"], groups)[..., cols],
-          "w2": _SumGrad.apply(p["w2"], groups)[..., cols, :]}
-    if cfg.gated_mlp:
-        pl["w3"] = _SumGrad.apply(p["w3"], groups)[..., cols]
-    out = _SumOut.apply(_moe_block_global(pl, x, cfg), model)  # row-parallel
-    if split:
-        out = _GatherRows.apply(out, mesh, index)
-    return out
+    x = device_agg.SumGrad.apply(x, (model,))
+    pl = dict(p, router=device_agg.SumGrad.apply(p["router"], (model,)))
+    return row_sum(_moe_block_global(pl, x, cfg), model)
 
 
 def _moe_block_global(p: dict, x: torch.Tensor, cfg: ModelConfig

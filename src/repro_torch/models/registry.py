@@ -67,7 +67,13 @@ def forward(params, cfg: ModelConfig, batch):
     return transformer.forward(params, cfg, batch["tokens"])
 
 
-def decode_step(params, cfg: ModelConfig, tokens, cache):
+def decode_step(params, cfg: ModelConfig, tokens, cache,
+                length_axes: tuple = ()):
+    """``length_axes``: the mesh axes that split the KV ring's length
+    (``transformer.decode_step``)."""
+    if length_axes:
+        return transformer.decode_step(params, cfg, tokens, cache,
+                                       length_axes)
     return _family(cfg).decode_step(params, cfg, tokens, cache)
 
 

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import meshctx
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
@@ -65,9 +66,16 @@ _ATTN_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
+    """Raise for a family this module does not hold, and, under a mesh
+    whose ``model`` axis has more than one rank, for one that does not run
+    split over it yet (``partitioning.check_tp_family``)."""
     if cfg.family not in DECODER_FAMILIES:
         raise ValueError(f"{cfg.name}: no decoder-only family "
                          f"{cfg.family!r}")
+    mesh = meshctx.get_mesh()
+    if mesh is not None:
+        from repro_torch.launch.partitioning import check_tp_family
+        check_tp_family(cfg, mesh)
 
 
 def _layer_shapes(cfg: ModelConfig) -> dict:
@@ -107,40 +115,47 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-                lead: tuple, moe: bool) -> dict:
+                lead: tuple, moe: bool, keep=L.keep_whole) -> dict:
     """An attention block's parameters (norms, attention, MLP or MoE)."""
     ones = torch.ones(lead + (cfg.d_model,), dtype=dtype, device=gen.device)
-    p = {"ln1": ones, "attn": L.attn_init(gen, cfg, dtype, lead=lead),
+    p = {"ln1": ones, "attn": L.attn_init(gen, cfg, dtype, lead=lead,
+                                          keep=keep),
          "ln2": ones.clone()}
     if moe:
-        p["moe"] = MOE.moe_init(gen, cfg, dtype, lead=lead)
+        p["moe"] = MOE.moe_init(gen, cfg, dtype, lead=lead, keep=keep)
     else:
-        p["mlp"] = L.mlp_init(gen, cfg, dtype, lead=lead)
+        p["mlp"] = L.mlp_init(gen, cfg, dtype, lead=lead, keep=keep)
     return p
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-                n: int) -> dict:
+                n: int, keep=L.keep_whole) -> dict:
     """``n`` layers' parameters, stacked on a leading axis."""
     if cfg.family in ("ssm", "hybrid"):
         init = SSM.mamba1_init if cfg.family == "ssm" else SSM.mamba2_init
         return {"ln": torch.ones((n, cfg.d_model), dtype=dtype,
                                  device=gen.device),
                 "mamba": init(gen, cfg, dtype, lead=(n,))}
-    return _block_init(gen, cfg, dtype, (n,), cfg.moe is not None)
+    return _block_init(gen, cfg, dtype, (n,), cfg.moe is not None, keep)
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                keep=L.keep_whole) -> dict:
     """Seeded parameters on the generator's device. A ``torch.Generator``
     does not replay ``jax.random``: to compute with the reference's
-    weights, carry them over with ``convert.params_from_jax``."""
+    weights, carry them over with ``convert.params_from_jax``.
+    ``keep(leaf, tensor)`` takes each drawn weight of an attention family
+    and returns what is kept of it (``partitioning.init_local_params``:
+    a rank's block); the draws are the same whatever it keeps."""
     _check_family(cfg)
     dt = cfg.param_dtype
-    p = {"embed": L.embed_init(gen, (cfg.vocab, cfg.d_model), dt)}
-    p.update(_join("layers.", _layer_init(gen, cfg, dt, cfg.n_layers)))
+    p = {"embed": keep("embed", L.embed_init(gen, (cfg.vocab, cfg.d_model),
+                                             dt))}
+    p.update(_join("layers.", _layer_init(gen, cfg, dt, cfg.n_layers, keep)))
     p["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
     if not cfg.tie_embeddings:
-        p["lm_head"] = L.embed_init(gen, (cfg.d_model, cfg.vocab), dt)
+        p["lm_head"] = keep("lm_head", L.embed_init(
+            gen, (cfg.d_model, cfg.vocab), dt))
     if cfg.family == "hybrid":
         p.update(_join("shared_attn.", _block_init(gen, cfg, dt, (), False)))
     return p
@@ -211,10 +226,16 @@ def _mamba_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig
 
 def forward(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B,S) integer -> logits (B,S,V) in the compute dtype."""
+    """tokens (B,S) integer -> logits (B,S,V) in the compute dtype.
+
+    Under a mesh (``meshctx``) whose ``model`` axis splits the weights
+    (``partitioning.shard_params``) the forward is tensor-parallel and the
+    logits are this rank's vocabulary block (B,S,V/tp), as the LM head
+    holds it; ``device_agg.all_gather_model(mesh, logits, -1)`` joins
+    them."""
     _check_family(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = L.embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+    x = L.embed_tokens(params["embed"], tokens, cfg.compute_dtype, cfg)
     layers = _unstack(params, cfg.n_layers)
     if cfg.family in _ATTN_FAMILIES:
         for lp in layers:
@@ -235,7 +256,7 @@ def _logits(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     """The final norm and the LM head."""
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return L.lm_logits(x, head, cfg.compute_dtype)
+    return L.lm_logits(x, head, cfg.compute_dtype, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +274,31 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     """The decode cache's tensors on the ``meta`` device (shapes and types,
     no storage): a K/V ring buffer of ``W = min(max_len, sliding_window)``
     slots per attention block, and per Mamba layer the SSM state and conv
-    histories (:func:`ssm.mamba_cache_specs`) under ``mamba``."""
+    histories (:func:`ssm.mamba_cache_specs`) under ``mamba``. Under a
+    mesh (``meshctx``) each tensor is this rank's block by
+    ``partitioning.cache_pspecs`` (batch over the replica axes, kv heads
+    or the ring's length over ``model``)."""
+    whole = _whole_cache_specs(cfg, batch, max_len, dtype)
+    mesh = meshctx.get_mesh()
+    if mesh is None:
+        return whole
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import partitioning as parts
+    specs = parts.cache_pspecs(
+        cfg, ShapeConfig("serve", seq_len=max_len, global_batch=batch,
+                         kind="decode"), mesh, whole)
+
+    def local(spec, t):
+        if isinstance(t, Mapping):
+            return {k: local(spec[k], v) for k, v in t.items()}
+        return torch.empty(parts.local_shape(spec, t.shape, mesh, False),
+                           dtype=t.dtype, device=t.device)
+
+    return local(specs, whole)
+
+
+def _whole_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype: torch.dtype) -> dict:
     _check_family(cfg)
     w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     meta = torch.device("meta")
@@ -301,12 +346,12 @@ def _mamba_decode_layer(lp: dict, x: torch.Tensor, mc: dict,
     return x + h
 
 
-def _decode_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, kc, vc, idx
-                  ) -> torch.Tensor:
+def _decode_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, kc, vc, idx,
+                  length_axes: tuple = ()) -> torch.Tensor:
     """A transformer block's single-token step against its K/V ring."""
     x = x + L.decode_attention_block(
         lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
-        k_cache=kc, v_cache=vc, idx=idx)
+        k_cache=kc, v_cache=vc, idx=idx, length_axes=length_axes)
     xi = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
         return x + MOE.moe_block(lp["moe"], xi, cfg)
@@ -314,18 +359,24 @@ def _decode_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, kc, vc, idx
 
 
 def decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
-                tokens: torch.Tensor, cache: dict):
+                tokens: torch.Tensor, cache: dict, length_axes: tuple = ()):
     """tokens (B,1) -> (logits (B,1,V), cache). Writes this token's keys and
     values (and every Mamba layer's state) into ``cache`` and advances its
     ``idx``, in place (the reference's donated cache), and returns the
-    same dict. The conv histories keep the cache's type."""
+    same dict. The conv histories keep the cache's type.
+
+    Under a mesh (``meshctx``) the step is tensor-parallel on this rank's
+    blocks (see :func:`forward`: the logits are its vocabulary block), the
+    cache is its block (:func:`cache_specs`) and ``length_axes`` names the
+    mesh axes that split the ring's length
+    (``partitioning.kv_length_axes``), () when none does."""
     _check_family(cfg)
     idx = cache["idx"]
-    x = L.embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+    x = L.embed_tokens(params["embed"], tokens, cfg.compute_dtype, cfg)
     layers = _unstack(params, cfg.n_layers)
     if cfg.family in _ATTN_FAMILIES:
         for lp, kc, vc in zip(layers, cache["k"], cache["v"]):
-            x = _decode_block(lp, x, cfg, kc, vc, idx)
+            x = _decode_block(lp, x, cfg, kc, vc, idx, length_axes)
     else:
         every = cfg.attn_every if cfg.family == "hybrid" else 0
         shared = _nest(params, "shared_attn.")
@@ -343,7 +394,8 @@ def decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
 def loss_fn(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]):
     logits = forward(params, cfg, batch["tokens"])
-    loss = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    loss = L.cross_entropy(logits, batch["labels"], batch.get("mask"),
+                           vocab=cfg.vocab)
     return loss, {"loss": loss}
 
 

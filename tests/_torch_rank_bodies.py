@@ -133,7 +133,12 @@ def trainer(rank: int, world: int, params: dict, tokens: np.ndarray,
         ckpt_dir=ckpt_dir, ckpt_every=2, log_every=0,
         device="cpu")["losses"]
 
-    # MoE: the local dispatch on (2, 2) against the global one
+    # MoE: the local dispatch on (2, 2) (each rank's rows of the batch
+    # over "data", its d_ff block of the experts over "model") against the
+    # global one on one device
+    from _torch_rank_tp import forward_and_loss
+    from repro_torch.core import device_agg as da
+    from repro_torch.launch import partitioning as parts
     smoke = get_arch("phi3.5-moe-42b-a6.6b").smoke
     mcfg = dataclasses.replace(
         smoke, compute_dtype=torch.float32, remat=False,
@@ -144,10 +149,19 @@ def trainer(rank: int, world: int, params: dict, tokens: np.ndarray,
     for label, c in (("global", mcfg),
                      ("local", dataclasses.replace(mcfg,
                                                    moe_dispatch="local"))):
-        with meshctx.use_mesh(mesh if label == "local" else None):
-            logits = R.forward(mp, c, mbatch)
+        if label == "global":
+            logits = R.forward(mp, c, mbatch).detach().numpy()
             _, _, grads = T._value_and_grad(c, mp, mbatch)
-        res[label] = {"logits": logits.detach().numpy(),
+        else:
+            blocks = parts.shard_params(mp, c, mesh)
+            logits, _ = forward_and_loss(mesh, c, blocks, mbatch)
+            rows = T._local_batch(mbatch, {k: ("data",) for k in mbatch},
+                                  mesh)
+            with meshctx.use_mesh(mesh):
+                _, _, grads = T._value_and_grad(c, blocks, rows)
+            grads = parts.gather_params(da.pmean(mesh, grads, ("data",)), c,
+                                        mesh)
+        res[label] = {"logits": logits,
                       "grad_abs": float(sum(g.abs().sum() for g in
                                             grads.values())),
                       "grads": _flat(grads)}

@@ -937,3 +937,54 @@ def test_host_mesh_round_on_card(topology):
                     runtime=LambdaRuntime(), engine="host_mesh", n_shards=4)
     assert fs.LAUNCHES > before
     assert _bits(got.avg_flat).equal(_bits(ref.avg_flat))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism's serving path at model = 1 on one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-32b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_model1_serve_step_is_the_meshless_step_on_card(arch):
+    """make_serve_step on a one-rank NCCL group's (1, 1) mesh, none plan,
+    at the smoke config (f32 compute, f32 cache): 12 decode steps equal
+    the mesh-less step bit for bit (logits and cache), and launch rmsnorm
+    as often (the TP wrappers take no op at model = 1)."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig, ShardingPlan
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry as models
+
+    _need_card()
+    cfg = dataclasses.replace(get_arch(arch).smoke, remat=False,
+                              compute_dtype=torch.float32)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    shape = ShapeConfig("serve", seq_len=16, global_batch=2, kind="decode")
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    like = models.cache_specs(cfg, 2, 16, torch.float32)
+    steps = [serve.make_serve_step(cfg, shape, mesh, like,
+                                   ShardingPlan(grad_sharding="none")),
+             serve.make_serve_step(cfg, shape, cache_like=like)]
+    caches = [models.init_cache(cfg, 2, 16, torch.float32, "cuda")
+              for _ in steps]
+    toks = torch.randint(0, cfg.vocab, (2, 12), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    for i in range(12):
+        outs, launches = [], []
+        for j, step in enumerate(steps):
+            before = rn.LAUNCHES
+            logits, caches[j] = step(params, toks[:, i:i + 1], caches[j])
+            launches.append(rn.LAUNCHES - before)
+            outs.append(logits)
+        assert launches[0] == launches[1] == \
+            models.norms_per_decode_step(cfg)
+        assert torch.equal(outs[0], outs[1])
+    for key in ("idx", "k", "v"):
+        assert torch.equal(caches[0][key], caches[1][key])
+    torch.distributed.destroy_process_group()

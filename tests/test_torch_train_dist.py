@@ -287,10 +287,12 @@ def test_make_train_step_matches_reference():
 
 
 def test_moe_local_dispatch_matches_global(runs):
-    """The per-rank MoE dispatch on (2, 2) (batch split over `data`, d_ff
-    over `model`, one all-reduce) against the global dispatch: logits
-    within rtol = atol = 2e-4, the gradient's sum of absolute values and
-    every gradient leaf within the same; every rank sees the same."""
+    """The per-rank MoE dispatch on (2, 2) (each rank's rows of the batch
+    over `data`, its d_ff block of the experts over `model`, one
+    all-reduce; logits joined, gradients averaged over `data` and
+    gathered) against the global dispatch on one device: logits within
+    rtol = atol = 2e-4, the gradient's sum of absolute values and every
+    gradient leaf within the same; every rank sees the same."""
     _, ranks = runs
     for r in ranks:
         loc, glob = r["moe"]["local"], r["moe"]["global"]
