@@ -185,7 +185,25 @@ Phases, each fatal on failure:
    defaults: 257 rmsnorm launches a step, tokens/s, the median host wall
    of 20 steps, peak device memory, one profiled step's kernels and busy
    share beside the step's bytes bound. ``tools/multi_card.py`` serves the
-   same model split over four cards.
+   same model split over four cards;
+18. tensor parallelism for the SSM, hybrid and encoder-decoder families on
+   one card: the rmsnorm kernel's split route (Mamba-2's gated norm over a
+   ``d_inner`` cut over the ranks: each block's sum of squares, an
+   all-reduce, the scale launch) at zamba2's rank rows, (4, 1280), (4,
+   2560) and a training block (1024, 1280), bf16 and f32: a row of 5,120
+   in 4 (or 2) blocks, each launch against its plain version, the sums
+   added on the card (the ranks' all-reduce) and the joined blocks
+   against the whole-row kernel (rmsnorm's tolerance), one block bit for bit the whole-row
+   kernel, each launch's device time beside its bytes bound (the training
+   block's read from HBM, over copies that outgrow the L2); then on a
+   one-rank NCCL group and a (1, 1) ("data", "model") mesh
+   ``falcon-mamba-7b``, ``zamba2-2.7b`` and ``whisper-tiny`` as registered
+   (full width, full depth, bf16 for serving) through the mesh's
+   ``make_serve_step`` bit for bit the mesh-less step over 23 steps
+   (logits and cache; at ``model`` = 1 every TP wrapper takes no op),
+   ``norms_per_decode_step`` rmsnorm launches a step.
+   ``tools/multi_card.py`` runs the three families split over four cards,
+   where the gated norm takes the split route.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -252,9 +270,11 @@ def fail(msg: str) -> None:
 
 
 def bits_equal(a, b) -> bool:
+    """The same shape, type and bits, any type."""
     import torch
-    return a.shape == b.shape and a.dtype == b.dtype == torch.float32 \
-        and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))
 
 
 def peaks(name: str) -> tuple:
@@ -2710,24 +2730,41 @@ def flat_params(params):
 
 
 def plan_step(T, mesh, cfg, shape, opt, gs, params, batch, base,
-              where: str = "16"):
+              where: str = "16", with_mu: bool = False):
     """One checked step of plan ``gs`` from ``params`` on ``batch``:
     ``(step, p_in, state, row, flat)``, the step and its placed inputs
-    kept for timing, ``flat`` the new parameters gathered whole. Fails on
-    a non-finite loss or parameters and, given ``base`` (the ``none``
-    plan's ``(flat, loss)``), beyond the tolerances across plans."""
+    kept for timing, ``flat`` the new parameters gathered whole; with
+    ``with_mu``, AdamW's first moment gathered whole and flat as a sixth
+    item (after one step from zero, ``(1 - b1)`` times the clipped
+    gradient the plan's optimizer took). On a card, ``row`` holds the
+    memory held before the step and the step's peak, both read before
+    the check gathers anything whole. Fails on a non-finite loss or
+    parameters and, given ``base`` (the ``none`` plan's ``(flat,
+    loss)``), beyond the tolerances across plans."""
     import torch
     from repro_torch.config import ShardingPlan
     plan = ShardingPlan(grad_sharding=gs)
     step = T.jit_train_step(cfg, shape, mesh, plan, opt, None, donate=False)
     p_in, state = T.place_state(cfg, mesh, plan, params, opt.init(params))
+    cuda = batch["tokens"].device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
     new, new_state, m = step(p_in, state, batch)
-    flat = flat_params(T.gather_state(cfg, mesh, plan, new, new_state)[0])
+    if cuda:
+        step_peak = torch.cuda.max_memory_allocated() / 1e9
+    whole, whole_state = T.gather_state(cfg, mesh, plan, new, new_state)
     del new, new_state
+    flat = flat_params(whole)
+    del whole
+    mu = flat_params(whole_state.mu) if with_mu else None
+    del whole_state
     loss = float(m["loss"])
     if not math.isfinite(loss) or not bool(torch.isfinite(flat).all()):
         fail(f"{where}: the {gs} step gave a non-finite loss or parameters")
     row = {"loss": loss, "grad_norm": float(m["grad_norm"])}
+    if cuda:
+        row.update(held_before_step_gb=held, step_peak_memory_gb=step_peak)
     if base is not None:
         err, ok = max_rel(flat, base[0], PLAN_RTOL, PLAN_ATOL)
         row["max_abs_err_vs_none"] = err
@@ -2735,6 +2772,8 @@ def plan_step(T, mesh, cfg, shape, opt, gs, params, batch, base,
             fail(f"{where}: the {gs} plan != none (loss {loss} vs "
                  f"{base[1]}; params max abs err {err}) beyond "
                  f"{PLAN_LOSS_ATOL} / rtol {PLAN_RTOL}, atol {PLAN_ATOL}")
+    if with_mu:
+        return step, p_in, state, row, flat, mu
     return step, p_in, state, row, flat
 
 
@@ -3368,6 +3407,321 @@ def phase_tp(serve, models, rn, get_arch, peak, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: tensor parallelism for the SSM, hybrid and encoder-decoder
+# families (the rmsnorm kernel's split route, the (1, 1) mesh's bits)
+# ---------------------------------------------------------------------------
+
+TP_FAMILY_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b", "whisper-tiny")
+# zamba2's gated-norm rows a rank holds (d_inner 5,120): serving's batch 4
+# over 4 and 2 ranks, the trainer's 8 x 128 rows over 4; (rows, block
+# width, blocks)
+# A block of more than COLD_BYTES is timed over distinct copies that
+# together hold at least COLD_POOL_BYTES (twice the H100's 50 MB L2), one
+# copy a call in turn, so that each call reads its block from HBM
+COLD_BYTES, COLD_POOL_BYTES = 1 << 20, 100 << 20
+SPLIT_ROWS = {"decode, one of 4 ranks": (4, 1280, 4),
+              "decode, one of 2 ranks": (4, 2560, 2),
+              "training, one of 4 ranks": (1024, 1280, 4)}
+
+
+def _split_close(label, got, want, dtype) -> float:
+    """Max abs err of the split route's output against ``want``; fails
+    beyond the rmsnorm tolerance (f32: rtol 1e-5, atol 1e-6; bf16: one
+    ulp)."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    ok = bf16_ulps(got, want) <= 1 if dtype == torch.bfloat16 else bool(
+        ((got - want).abs() <= 1e-6 + 1e-5 * want.abs()).all())
+    if not ok:
+        fail(f"18: the rmsnorm split route {label} beyond the rmsnorm "
+             f"tolerance (max abs err {err})")
+    return err
+
+
+def phase_split_norm(rn, peak):
+    """18 (a): the rmsnorm kernel's split route at zamba2's rank rows, bf16
+    and f32 (f32 gamma): a row of 5,120 cut into 4 (or 2) blocks, each
+    block's sum of squares by the first launch against its plain version
+    (rtol 1e-5), the sums added on the device (the all-reduce of the
+    ranks), each block's scale
+    launch against its plain version on the same sum and the joined blocks
+    against the whole-row kernel on the whole row (both at the rmsnorm
+    tolerance), one block with its own sum bit for bit the whole-row
+    kernel; each launch's device time beside its bytes bound, the training
+    block's over copies that outgrow the L2 (COLD_POOL_BYTES). The
+    comparisons' whole-row launches do not count."""
+    import itertools
+
+    import torch
+    bw, f32, _ = peak
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 180)
+    rows, max_err = {}, 0.0
+    for label, (r, d, blocks) in SPLIT_ROWS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            width = blocks * d
+            x = (torch.randn(r, width, generator=gen, device="cuda")
+                 * 3).to(dtype)
+            gamma = torch.randn(width, generator=gen, device="cuda")
+            cuts = [slice(i * d, (i + 1) * d) for i in range(blocks)]
+            ssq = [rn.rmsnorm_sumsq(x[:, c]) for c in cuts]
+            for c, got in zip(cuts, ssq):
+                want = rn.rmsnorm_sumsq_plain(x[:, c])
+                if not bool(((got - want).abs() <= 1e-5 * want.abs()).all()):
+                    fail(f"18: rmsnorm_sumsq at ({r}, {d}) {dtype} != its "
+                         f"plain version beyond rtol 1e-5")
+            total = ssq[0]
+            for more in ssq[1:]:         # the all-reduce of the ranks
+                total = total + more
+            outs = [rn.rmsnorm_scale(x[:, c], total, gamma[c], 1e-5, width)
+                    for c in cuts]
+            tag = f"at ({r}, {d}) of {width} {dtype}"
+            for c, (out, rstd) in zip(cuts, outs):
+                want, want_rstd = rn.rmsnorm_scale_plain(
+                    x[:, c], total, gamma[c], 1e-5, width)
+                max_err = max(max_err, _split_close(
+                    f"{tag} against its plain version", out, want, dtype))
+                if not bool(((rstd - want_rstd).abs()
+                             <= 1e-5 * want_rstd.abs()).all()):
+                    fail(f"18: rmsnorm_scale's rstd {tag} != plain")
+            with uncounted(rn):
+                whole, whole_rstd = rn.rmsnorm(x, gamma)
+                one, _ = rn.rmsnorm(x[:, cuts[0]], gamma[cuts[0]])
+            joined = torch.cat([o for o, _ in outs], dim=1)
+            max_err = max(max_err, _split_close(
+                f"{tag} against the whole-row kernel", joined, whole, dtype))
+            alone, _ = rn.rmsnorm_scale(x[:, cuts[0]],
+                                        rn.rmsnorm_sumsq(x[:, cuts[0]]),
+                                        gamma[cuts[0]], 1e-5, d)
+            if not bits_equal(alone, one):
+                fail(f"18: one block's split route {tag} != the whole-row "
+                     f"kernel on it bit for bit")
+            xs = x.element_size()
+            sum_bytes, scale_bytes = r * d * xs + 4 * r, \
+                2 * r * d * xs + 4 * d + 8 * r
+            t_sum, t_scale = sum_bytes / bw, scale_bytes / bw
+            o_sum, o_scale = 2 * r * d / f32, 3 * r * d / f32
+            # a rank's block is its own contiguous (rows, d); one copy a
+            # call in turn where a block outgrows COLD_BYTES
+            copies = 1 if r * d * xs <= COLD_BYTES else \
+                -(-COLD_POOL_BYTES // (r * d * xs))
+            pool = itertools.cycle([x[:, cuts[0]].contiguous()
+                                    for _ in range(copies)])
+            g_blk = gamma[cuts[0]]
+            dev_sum = device_ms(lambda: rn.rmsnorm_sumsq(next(pool)),
+                                "rmsnorm_sumsq_kernel")
+            dev_scale = device_ms(
+                lambda: rn.rmsnorm_scale(next(pool), total, g_blk, 1e-5,
+                                         width), "rmsnorm_scale_kernel")
+
+            def pair():
+                blk = next(pool)
+                return rn.rmsnorm_scale(blk, rn.rmsnorm_sumsq(blk), g_blk,
+                                        1e-5, width)
+
+            def plain():
+                blk = next(pool)
+                return rn.rmsnorm_scale_plain(
+                    blk, rn.rmsnorm_sumsq_plain(blk), g_blk, 1e-5, width)
+            bound = (max(t_sum, o_sum) + max(t_scale, o_scale)) * 1e3
+            row = {"shape": [r, d], "d_total": width, "dtype": str(dtype),
+                   "timed_copies": copies,
+                   "bytes": sum_bytes + scale_bytes, "bound_ms": bound,
+                   "bound_by": "bytes" if t_sum >= o_sum and t_scale
+                   >= o_scale else "operations",
+                   "sumsq_device_ms": dev_sum[0] if dev_sum else None,
+                   "scale_device_ms": dev_scale[0] if dev_scale else None,
+                   "ms": time_ms(pair), "plain_ms": time_ms(plain),
+                   "library_ms": None}
+            row["device_ms"] = None if not (dev_sum and dev_scale) else \
+                dev_sum[0] + dev_scale[0]
+            rows[f"{r}x{d} {str(dtype)[6:]}"] = row
+            dev = "not measured" if row["device_ms"] is None else \
+                (f"{row['sumsq_device_ms'] * 1e3:.3f} + "
+                 f"{row['scale_device_ms'] * 1e3:.3f} us "
+                 f"({100 * bound / row['device_ms']:.1f}% of bound)")
+            where = f"{copies} copies of the block in turn, from HBM" \
+                if copies > 1 else "one block"
+            print(f"[18] rmsnorm split route {tag} ({label}): {blocks} "
+                  f"blocks == "
+                  f"plain and == the whole-row kernel within the rmsnorm "
+                  f"tolerance, one block == it bit for bit; device {dev} "
+                  f"over {where}, bound {bound * 1e3:.3f} us "
+                  f"({row['bound_by']})")
+    return rows, max_err
+
+
+def _family_model1_bits(serve, models, rn, get_arch, mesh, arch, card):
+    """18 (b): ``arch`` as registered (full width, full depth), its
+    weights cast for serving (bf16), through make_serve_step on the (1, 1)
+    mesh under the none plan, bit for bit the mesh-less step over the
+    serving run's 23 steps (logits and the whole cache, the encoder's
+    cross-attention K/V built under the mesh included); the rmsnorm
+    launches of each step equal to ``norms_per_decode_step``."""
+    import torch
+    from repro_torch.config import ShapeConfig, ShardingPlan
+    from repro_torch.models import encdec, meshctx
+    cfg = dataclasses.replace(get_arch(arch).model, remat=False)
+    b, max_len = SERVE["batch"], SERVE["max_len"]
+    shape = ShapeConfig("serve", seq_len=max_len, global_batch=b,
+                        kind="decode")
+    t0 = time.perf_counter()
+    params = serve.cast_for_serving(models.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 18), cfg), cfg)
+    torch.cuda.empty_cache()
+    family = encdec if models.is_encdec(cfg) else models
+    like = family.cache_specs(cfg, b, max_len)
+    on_mesh = serve.make_serve_step(cfg, shape, mesh, like,
+                                    ShardingPlan(grad_sharding="none"))
+    alone = serve.make_serve_step(cfg, shape, cache_like=like)
+    with torch.inference_mode():
+        want_cache, frames = _family_cache(models, cfg, params, b, max_len,
+                                           torch.bfloat16, SEED + 181)
+        with meshctx.use_mesh(mesh):
+            got_cache = encdec.init_cache(
+                cfg, b, max_len, params=params, frames=frames,
+                device="cuda") if frames is not None else models.init_cache(
+                    cfg, b, max_len, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (b, SERVE_STEPS), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED + 182))
+    norms = models.norms_per_decode_step(cfg)
+    per_step = []
+    for i in range(SERVE_STEPS):
+        before = rn.LAUNCHES
+        got, got_cache = on_mesh(params, toks[:, i:i + 1], got_cache)
+        per_step.append(rn.LAUNCHES - before)
+        with uncounted(rn):                  # the comparison's step
+            want, want_cache = alone(params, toks[:, i:i + 1], want_cache)
+        if not bits_equal(got, want):
+            fail(f"18: {arch} step {i} on the (1, 1) mesh != the mesh-less "
+                 f"step (max abs err {float((got - want).abs().max())})")
+    flat = lambda c: [t for _, t in sorted(_leaves(c))]
+    if not all(bits_equal(a, w) for a, w in zip(flat(got_cache),
+                                                flat(want_cache))) \
+            or int(got_cache["idx"]) != SERVE_STEPS:
+        fail(f"18: {arch}'s cache on the (1, 1) mesh != the mesh-less "
+             f"step's")
+    if per_step != [norms] * SERVE_STEPS:
+        fail(f"18: {arch}'s rmsnorm launches a step on the (1, 1) mesh "
+             f"{per_step}, expected {norms}")
+    n = models.param_count(cfg)
+    del params, got_cache, want_cache, got, want
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"[18] {arch} as registered ({n:,} parameters, bf16 for serving) "
+          f"through make_serve_step on the (1, 1) mesh, none plan: "
+          f"{SERVE_STEPS} steps == the mesh-less step bit for bit (logits "
+          f"and cache); {norms} rmsnorm launches a step; {secs:.1f} s "
+          f"({card})")
+    return {"params": n, "steps": SERVE_STEPS, "max_abs_err": 0.0,
+            "rmsnorm_per_step": norms, "seconds": secs}
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def family_first_logits(serve, models, cfg, params, mesh, cache_dtype=None):
+    """The first decode step's logits (B, 1, V) on the serving run's first
+    prompt token through make_serve_step on ``mesh``, any family (an
+    encoder-decoder's cross-attention cache from seeded frames, built
+    under the mesh); what tools/multi_card.py holds against one card."""
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models import encdec, meshctx
+    if not models.is_encdec(cfg):
+        return tp_first_logits(serve, models, cfg, params, mesh, cache_dtype)
+    b, max_len = SERVE["batch"], SERVE["max_len"]
+    shape = ShapeConfig("serve", seq_len=max_len, global_batch=b,
+                        kind="decode")
+    dtype = cache_dtype or torch.bfloat16
+    dev = params["embed"].device
+    step = serve.make_serve_step(cfg, shape, mesh,
+                                 encdec.cache_specs(cfg, b, max_len, dtype))
+    frames = torch.randn((b, cfg.encoder_seq, cfg.frontend_dim or cfg.d_model),
+                         device=dev, generator=torch.Generator(device=dev)
+                         .manual_seed(SEED + 181))
+    with meshctx.use_mesh(mesh):
+        cache = encdec.init_cache(cfg, b, max_len, params=params,
+                                  frames=frames, dtype=dtype, device=dev)
+    logits, _ = step(params, torch.from_numpy(tp_prompt(cfg)[:, :1]).to(dev),
+                     cache)
+    return logits
+
+
+def phase_tp_families(serve, models, rn, get_arch, peak, card):
+    """18: the rmsnorm kernel's split route (Mamba-2's gated norm under
+    tensor parallelism) against its plain version and the whole-row kernel;
+    then, on a one-rank NCCL group and a (1, 1) ("data", "model") mesh, the
+    three families as registered through the mesh's make_serve_step bit
+    for bit the mesh-less step. The rmsnorm counts are set to 0 before
+    the families' run and read after it; the comparisons' launches do not
+    count. tools/multi_card.py runs the families split over four cards."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    rn.SPLIT_LAUNCHES = 0
+    split_rows, split_err = phase_split_norm(rn, peak)
+    split_launches = rn.SPLIT_LAUNCHES
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    rn.LAUNCHES, rn.SPLIT_LAUNCHES = 0, 0    # the phase's main path
+    models_out = {arch: _family_model1_bits(serve, models, rn, get_arch,
+                                            mesh, arch, card)
+                  for arch in TP_FAMILY_ARCHS}
+    launches = rn.LAUNCHES
+    if launches == 0:
+        fail("18: the families' path never launched rmsnorm")
+    if rn.SPLIT_LAUNCHES:
+        fail(f"18: the (1, 1) mesh took the split route "
+             f"{rn.SPLIT_LAUNCHES} times (model = 1 splits nothing)")
+    dist.destroy_process_group()
+    out = {"split_rows": split_rows, "split_max_abs_err": split_err,
+           "split_launches_checked": split_launches,
+           "split_launches": rn.SPLIT_LAUNCHES, "models": models_out,
+           "launches": {"rmsnorm": launches},
+           "seconds": time.perf_counter() - t0}
+    print(f"[18] launches on the phase's path: rmsnorm {launches}, its "
+          f"split route {rn.SPLIT_LAUNCHES}; the split route's checks apart "
+          f"{split_launches}; {out['seconds']:.1f} s")
+    return out
+
+
+def _split_line(tpf) -> dict:
+    """The split route's entry under rmsnorm in the kernels line: its two
+    launchers; ``launches`` from the main path's run, 0 here (at model = 1
+    no row is split; the path that runs it is tensor parallelism over
+    several cards, whose count tools/multi_card.py section 5 prints); the
+    comparisons' launches apart under ``check_launches``; the largest
+    error against the plain version and the whole-row kernel, and each
+    row's times beside its bound (the decode block of 4 ranks first,
+    bf16)."""
+    rows = tpf["split_rows"]
+    head = rows["4x1280 bfloat16"]
+    return {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "entry_points": ["rmsnorm_sumsq_launch", "rmsnorm_scale_launch"],
+            "replaces": "src/repro/kernels/rmsnorm.py:25",
+            "launches": tpf["split_launches"],
+            "check_launches": tpf["split_launches_checked"],
+            "main_path_launches_at": "tools/multi_card.py section 5 "
+                                     "(zamba2-2.7b over (1, 4))",
+            "max_abs_err": tpf["split_max_abs_err"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "device_ms": head["device_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "rows": {k: {key: r[key] for key in
+                         ("device_ms", "sumsq_device_ms", "scale_device_ms",
+                          "ms", "plain_ms", "bound_ms", "bound_by",
+                          "timed_copies")}
+                     for k, r in rows.items()}}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -3490,6 +3844,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     tp = phase_tp(serve, models, rn, get_arch, peaks(name), card)
     clock.append(("17 TP serving", time.perf_counter()))
+    # phase 18: TP for the SSM, hybrid and encoder-decoder families
+    torch.cuda.empty_cache()
+    tpf = phase_tp_families(serve, models, rn, get_arch, peaks(name), card)
+    clock.append(("18 TP families", time.perf_counter()))
     phase_s = {label: t - clock[i][1]
                for i, (label, t) in enumerate(clock[1:])}
     print(f"phase seconds ({card}): " + ", ".join(
@@ -3519,7 +3877,7 @@ def main() -> None:
                       "families": {"rmsnorm_rows": family_norms,
                                    "models": families},
                       "long_context": long_ctx, "federated_cnn": fl_cnn,
-                      "trainer": trainer, "tp": tp,
+                      "trainer": trainer, "tp": tp, "tp_families": tpf,
                       "phase_seconds": phase_s,
                       "card": card}))
     kernels = [{
@@ -3572,10 +3930,11 @@ def main() -> None:
     kernels[-1].update({
         "launches": lm_launches["rmsnorm"] + serve_out["launches"]
         + family_launches + trainer["launches"]["rmsnorm"]
-        + tp["launches"]["rmsnorm"],
+        + tp["launches"]["rmsnorm"] + tpf["launches"]["rmsnorm"],
         "max_abs_err": max(lm_errs["rmsnorm"], serve_norm_err,
                            family_norm_err, trainer["rmsnorm_max_abs_err"],
-                           tp["rmsnorm_max_abs_err"]),
+                           tp["rmsnorm_max_abs_err"],
+                           tpf["split_max_abs_err"]),
         "device_ms": norm["device_ms"],
         "library_device_ms": norm["library_device_ms"],
         "copy_device_ms": norm["copy_device_ms"],
@@ -3601,7 +3960,11 @@ def main() -> None:
                "rows": {k: {key: r.get(key) for key in
                             ("device_ms", "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms", "library_device_ms")}
-                        for k, r in tp["rmsnorm_rows"].items()}}})
+                        for k, r in tp["rmsnorm_rows"].items()}},
+        "tp_families": {"launches": tpf["launches"]["rmsnorm"],
+                        "per_step": {a: r["rmsnorm_per_step"] for a, r in
+                                     tpf["models"].items()}},
+        "split": _split_line(tpf)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -272,6 +272,9 @@ class GPUSpec:
     peak_flops_f64: float = 34e12        # /s outside the tensor cores, data sheet
     peak_flops_bf16: float = 989e12      # /s dense tensor cores, data sheet
     hbm_bytes: int = 80 * 10**9          # data sheet
+    # bytes/s, NVLink 4 between the cards of one 8-card host, 18 links,
+    # total of both directions, data sheet; a collective sends at half
+    nvlink_bw: float = 900e9
 
 
 H100_SXM = GPUSpec()

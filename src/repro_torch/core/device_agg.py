@@ -82,6 +82,13 @@ def _all_gather(out: torch.Tensor, shard: torch.Tensor, group) -> None:
     fn(out, shard, group=group)
 
 
+def _dense_copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` to reduce in place: NCCL takes contiguous
+    tensors only, and a gradient or a product can come in any layout (a
+    convolution's output on the card, a transposed view's gradient)."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 # ---------------------------------------------------------------------------
 # Per-axis collective primitives
 # ---------------------------------------------------------------------------
@@ -94,7 +101,7 @@ def psum(mesh, tree: Tree, axes) -> Tree:
     """Sum of every leaf over the mesh axes ``axes`` (a name or a tuple),
     one axis after the other."""
     def one(g: torch.Tensor) -> torch.Tensor:
-        out = g.clone()
+        out = _dense_copy(g)
         for ax in _axes(axes):
             dist.all_reduce(out, group=mesh.get_group(ax))
         return out
@@ -224,7 +231,7 @@ class SumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
+        g = _dense_copy(g)
         for group in ctx.groups:
             dist.all_reduce(g, group=group)
         return g, None
@@ -236,7 +243,7 @@ class SumOut(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.clone()
+        out = _dense_copy(x)
         dist.all_reduce(out, group=group)
         return out
 
@@ -296,7 +303,7 @@ def combine_partial_softmax(mesh, axes, m: torch.Tensor, l: torch.Tensor,
     all-reduce, then a sum all-reduce of the denominator and of the
     numerator, each rescaled by ``exp(m - max)``; ``l`` clamped at 1e-30
     before the divide, as the chunked attention does."""
-    top = m.clone()
+    top = _dense_copy(m)
     for ax in _axes(axes):
         dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.get_group(ax))
     alpha = torch.exp(m - top)

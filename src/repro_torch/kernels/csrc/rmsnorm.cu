@@ -34,6 +34,18 @@
 // Numbers: the sum is taken in a different order than torch.mean's, so the
 // result agrees with the plain version to a tolerance, not bit for bit.
 // x is f32 or bf16; gamma f32 or bf16; the output has x's type.
+//
+// The split route (tensor parallelism: a row cut over the ranks of the model
+// axis, as Mamba-2's gated norm over a split d_inner) is two more entry
+// points over the same device code: rmsnorm_sumsq_launch writes each row's
+// f32 sum of squares over the rank's block (the whole-row kernel's load and
+// sum), the caller all-reduces it over the ranks, and rmsnorm_scale_launch
+// writes out = x * rsqrt(ssq / d_total + eps) * gamma and rstd from it, with
+// no reduction of its own. Bounds: the first reads the block and writes 4
+// bytes a row; the second reads the block, gamma and 4 bytes a row and
+// writes the output and 4 bytes a row. With one block (d_total = d) the
+// route's sum is the whole-row kernel's, bit for bit. rmsnorm_launch keeps
+// its signature and its bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,22 +123,12 @@ __device__ __forceinline__ void load_gamma(const void* __restrict__ gamma, int g
     f[c] = g_bf16 ? __bfloat162float(gb[(j + c) * g_stride]) : gf[(j + c) * g_stride];
 }
 
-// One block of TPR threads a row, VPT values a thread at most; VEC: 16-byte
-// loads and stores of x and the output.
+// The row's part of thread t, into registers: element j = (t + TPR * i) * W + c
+// of the row is v[i * W + c], zero beyond d. VEC: 16-byte loads.
 template <typename X, int TPR, int VPT, bool VEC>
-__global__ void __launch_bounds__(TPR)
-rmsnorm_kernel(const X* __restrict__ x, int64_t x_stride, const void* __restrict__ gamma,
-               int g_bf16, int g_vec, int64_t g_stride, X* __restrict__ out,
-               float* __restrict__ rstd, int d, float eps) {
-  __shared__ float warp_sum[TPR / 32];
+__device__ __forceinline__ void load_row(const X* __restrict__ xr, int d, int t, float* v) {
   constexpr int W = VEC ? 16 / (int)sizeof(X) : 1;  // elements a load
   constexpr int NL = VPT / W;                       // loads a thread
-  const int t = threadIdx.x;
-  const int64_t row = blockIdx.x;
-  const X* xr = x + row * x_stride;
-
-  // element j = (t + TPR * i) * W + c of the row is v[i * W + c]
-  float v[VPT], gm[VPT];
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     const int j = (t + TPR * i) * W;
@@ -141,12 +143,27 @@ rmsnorm_kernel(const X* __restrict__ x, int64_t x_stride, const void* __restrict
       for (int c = 0; c < W; ++c) v[i * W + c] = 0.0f;
     }
   }
+}
+
+// gamma at the same positions as load_row's v.
+template <typename X, int TPR, int VPT, bool VEC>
+__device__ __forceinline__ void load_row_gamma(const void* __restrict__ gamma, int g_bf16,
+                                               int g_vec, int64_t g_stride, int d, int t,
+                                               float* gm) {
+  constexpr int W = VEC ? 16 / (int)sizeof(X) : 1;
+  constexpr int NL = VPT / W;
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     const int j = (t + TPR * i) * W;
     if (j < d) load_gamma<W>(gamma, g_bf16, g_vec, g_stride, j, gm + i * W);
   }
+}
 
+// The row's sum of squares, the same value in every thread of the block: four
+// partial sums a thread, warp shuffles, then the warp sums through shared
+// memory in a fixed order (the one barrier).
+template <int TPR, int VPT>
+__device__ __forceinline__ float row_sumsq(const float* v, float* warp_sum, int t) {
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
 #pragma unroll
   for (int k = 0; k < VPT; k += 4) {
@@ -164,11 +181,15 @@ rmsnorm_kernel(const X* __restrict__ x, int64_t x_stride, const void* __restrict
   s = warp_sum[0];
 #pragma unroll
   for (int w = 1; w < TPR / 32; ++w) s = __fadd_rn(s, warp_sum[w]);
+  return s;
+}
 
-  const float var = __fdiv_rn(s, (float)d);
-  const float r = rsqrtf(__fadd_rn(var, eps));
-  if (t == 0 && rstd != nullptr) rstd[row] = r;
-  X* yr = out + row * (int64_t)d;
+// out = (x * r) * gamma, in x's type, at load_row's positions.
+template <typename X, int TPR, int VPT, bool VEC>
+__device__ __forceinline__ void store_row(X* __restrict__ yr, const float* v, const float* gm,
+                                         float r, int d, int t) {
+  constexpr int W = VEC ? 16 / (int)sizeof(X) : 1;
+  constexpr int NL = VPT / W;
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     const int j = (t + TPR * i) * W;
@@ -186,6 +207,61 @@ rmsnorm_kernel(const X* __restrict__ x, int64_t x_stride, const void* __restrict
   }
 }
 
+// One block of TPR threads a row, VPT values a thread at most; VEC: 16-byte
+// loads and stores of x and the output.
+template <typename X, int TPR, int VPT, bool VEC>
+__global__ void __launch_bounds__(TPR)
+rmsnorm_kernel(const X* __restrict__ x, int64_t x_stride, const void* __restrict__ gamma,
+               int g_bf16, int g_vec, int64_t g_stride, X* __restrict__ out,
+               float* __restrict__ rstd, int d, float eps) {
+  __shared__ float warp_sum[TPR / 32];
+  const int t = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  float v[VPT], gm[VPT];
+  load_row<X, TPR, VPT, VEC>(x + row * x_stride, d, t, v);
+  load_row_gamma<X, TPR, VPT, VEC>(gamma, g_bf16, g_vec, g_stride, d, t, gm);
+  const float s = row_sumsq<TPR, VPT>(v, warp_sum, t);
+  const float var = __fdiv_rn(s, (float)d);
+  const float r = rsqrtf(__fadd_rn(var, eps));
+  if (t == 0 && rstd != nullptr) rstd[row] = r;
+  store_row<X, TPR, VPT, VEC>(out + row * (int64_t)d, v, gm, r, d, t);
+}
+
+// The split route, step 1: each row's sum of squares over this rank's block
+// of the row, the whole-row kernel's load and sum.
+template <typename X, int TPR, int VPT, bool VEC>
+__global__ void __launch_bounds__(TPR)
+rmsnorm_sumsq_kernel(const X* __restrict__ x, int64_t x_stride, float* __restrict__ ssq,
+                     int d) {
+  __shared__ float warp_sum[TPR / 32];
+  const int t = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  float v[VPT];
+  load_row<X, TPR, VPT, VEC>(x + row * x_stride, d, t, v);
+  const float s = row_sumsq<TPR, VPT>(v, warp_sum, t);
+  if (t == 0) ssq[row] = s;
+}
+
+// The split route, step 2: the block's output from the row's sum of squares
+// over all d_total elements (summed over the ranks by the caller); no
+// reduction, so no barrier.
+template <typename X, int TPR, int VPT, bool VEC>
+__global__ void __launch_bounds__(TPR)
+rmsnorm_scale_kernel(const X* __restrict__ x, int64_t x_stride, const float* __restrict__ ssq,
+                     const void* __restrict__ gamma, int g_bf16, int g_vec, int64_t g_stride,
+                     X* __restrict__ out, float* __restrict__ rstd, int d, float d_total,
+                     float eps) {
+  const int t = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  float v[VPT], gm[VPT];
+  load_row<X, TPR, VPT, VEC>(x + row * x_stride, d, t, v);
+  load_row_gamma<X, TPR, VPT, VEC>(gamma, g_bf16, g_vec, g_stride, d, t, gm);
+  const float var = __fdiv_rn(ssq[row], d_total);
+  const float r = rsqrtf(__fadd_rn(var, eps));
+  if (t == 0) rstd[row] = r;
+  store_row<X, TPR, VPT, VEC>(out + row * (int64_t)d, v, gm, r, d, t);
+}
+
 template <typename X, int TPR, int VPT>
 void run(bool vec, int64_t rows, const void* x, int64_t xs, const void* g, int g_bf16,
          int g_vec, int64_t gs, void* out, void* rstd, int d, float eps, cudaStream_t s) {
@@ -197,12 +273,16 @@ void run(bool vec, int64_t rows, const void* x, int64_t xs, const void* g, int g
 }
 
 template <typename X>
+bool vec_rows(const void* x, int64_t xs, int d) {
+  constexpr int W = 16 / (int)sizeof(X);
+  return (reinterpret_cast<uintptr_t>(x) & 15) == 0 && ((xs * (int64_t)sizeof(X)) & 15) == 0 &&
+         d % W == 0;
+}
+
+template <typename X>
 int launch(const void* x, int64_t xs, const void* g, int g_bf16, int64_t gs, void* out,
            void* rstd, int64_t rows, int d, float eps, cudaStream_t s) {
-  constexpr int W = 16 / (int)sizeof(X);
-  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                   ((xs * (int64_t)sizeof(X)) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(out) & 15) == 0 && d % W == 0;
+  const bool vec = vec_rows<X>(x, xs, d) && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const int g_vec = gs == 1 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
   if (d <= kSmallD)
     run<X, kSmallThreads, kSmallD / kSmallThreads>(vec, rows, x, xs, g, g_bf16, g_vec, gs,
@@ -210,6 +290,53 @@ int launch(const void* x, int64_t xs, const void* g, int g_bf16, int64_t gs, voi
   else
     run<X, kLargeThreads, kMaxD / kLargeThreads>(vec, rows, x, xs, g, g_bf16, g_vec, gs, out,
                                                  rstd, d, eps, s);
+  return (int)cudaGetLastError();
+}
+
+template <typename X, int TPR, int VPT>
+void run_sumsq(bool vec, int64_t rows, const void* x, int64_t xs, void* ssq, int d,
+               cudaStream_t s) {
+  const auto kernel = vec ? rmsnorm_sumsq_kernel<X, TPR, VPT, true>
+                          : rmsnorm_sumsq_kernel<X, TPR, VPT, false>;
+  kernel<<<(unsigned)rows, TPR, 0, s>>>(reinterpret_cast<const X*>(x), xs,
+                                        reinterpret_cast<float*>(ssq), d);
+}
+
+template <typename X>
+int launch_sumsq(const void* x, int64_t xs, void* ssq, int64_t rows, int d, cudaStream_t s) {
+  const bool vec = vec_rows<X>(x, xs, d);
+  if (d <= kSmallD)
+    run_sumsq<X, kSmallThreads, kSmallD / kSmallThreads>(vec, rows, x, xs, ssq, d, s);
+  else
+    run_sumsq<X, kLargeThreads, kMaxD / kLargeThreads>(vec, rows, x, xs, ssq, d, s);
+  return (int)cudaGetLastError();
+}
+
+template <typename X, int TPR, int VPT>
+void run_scale(bool vec, int64_t rows, const void* x, int64_t xs, const void* ssq,
+               const void* g, int g_bf16, int g_vec, int64_t gs, void* out, void* rstd, int d,
+               float d_total, float eps, cudaStream_t s) {
+  const auto kernel = vec ? rmsnorm_scale_kernel<X, TPR, VPT, true>
+                          : rmsnorm_scale_kernel<X, TPR, VPT, false>;
+  kernel<<<(unsigned)rows, TPR, 0, s>>>(reinterpret_cast<const X*>(x), xs,
+                                        reinterpret_cast<const float*>(ssq), g, g_bf16, g_vec,
+                                        gs, reinterpret_cast<X*>(out),
+                                        reinterpret_cast<float*>(rstd), d, d_total, eps);
+}
+
+template <typename X>
+int launch_scale(const void* x, int64_t xs, const void* ssq, const void* g, int g_bf16,
+                 int64_t gs, void* out, void* rstd, int64_t rows, int d, float d_total,
+                 float eps, cudaStream_t s) {
+  const bool vec = vec_rows<X>(x, xs, d) && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int g_vec = gs == 1 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  if (d <= kSmallD)
+    run_scale<X, kSmallThreads, kSmallD / kSmallThreads>(vec, rows, x, xs, ssq, g, g_bf16,
+                                                         g_vec, gs, out, rstd, d, d_total,
+                                                         eps, s);
+  else
+    run_scale<X, kLargeThreads, kMaxD / kLargeThreads>(vec, rows, x, xs, ssq, g, g_bf16, g_vec,
+                                                       gs, out, rstd, d, d_total, eps, s);
   return (int)cudaGetLastError();
 }
 
@@ -232,4 +359,37 @@ extern "C" int rmsnorm_launch(const void* x, int x_bf16, int64_t x_stride, const
     return launch<__nv_bfloat16>(x, x_stride, gamma, g_bf16, g_stride, out, rstd, rows, d, eps,
                                  s);
   return launch<float>(x, x_stride, gamma, g_bf16, g_stride, out, rstd, rows, d, eps, s);
+}
+
+// The split route, step 1. x as for rmsnorm_launch (a rank's block of each
+// row, d <= 8192 elements); ssq: rows f32, each row's sum of squares over the
+// block, in the whole-row kernel's order. Returns as rmsnorm_launch does.
+extern "C" int rmsnorm_sumsq_launch(const void* x, int x_bf16, int64_t x_stride, void* ssq,
+                                    int64_t rows, int d, void* stream) {
+  if (rows <= 0) return 0;
+  if (d < 1 || d > kMaxD || rows > 0x7fffffffLL || (x_bf16 >> 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (x_bf16) return launch_sumsq<__nv_bfloat16>(x, x_stride, ssq, rows, d, s);
+  return launch_sumsq<float>(x, x_stride, ssq, rows, d, s);
+}
+
+// The split route, step 2. x and gamma as for rmsnorm_launch (gamma: the
+// block's d elements); ssq: rows f32, each row's sum of squares over the
+// whole row of d_total >= d elements; out: rows * d contiguous elements of
+// x's type, out = x * rsqrt(ssq / d_total + eps) * gamma; rstd: rows f32.
+extern "C" int rmsnorm_scale_launch(const void* x, int x_bf16, int64_t x_stride,
+                                    const void* ssq, const void* gamma, int g_bf16,
+                                    int64_t g_stride, void* out, void* rstd, int64_t rows,
+                                    int d, int64_t d_total, float eps, void* stream) {
+  if (rows <= 0) return 0;
+  if (d < 1 || d > kMaxD || d_total < d || d_total > (1LL << 24) || rows > 0x7fffffffLL ||
+      (x_bf16 >> 1) || (g_bf16 >> 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return launch_scale<__nv_bfloat16>(x, x_stride, ssq, gamma, g_bf16, g_stride, out, rstd,
+                                       rows, d, (float)d_total, eps, s);
+  return launch_scale<float>(x, x_stride, ssq, gamma, g_bf16, g_stride, out, rstd, rows, d,
+                             (float)d_total, eps, s);
 }

@@ -23,7 +23,8 @@ reach both as f32, the way PyTorch turns a Python scalar into the operand
 of an f32 op.
 
 :func:`fused_sgd` launches the kernel for CUDA tensors and runs
-:func:`fused_sgd_plain` for CPU tensors; any other device raises.
+:func:`fused_sgd_plain` for CPU tensors and for meta tensors (no data, so
+no kernel to launch: the meta-device dry run); any other device raises.
 ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
@@ -63,7 +64,7 @@ def _check(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor) -> None:
     if not p.device == g.device == v.device:
         raise ValueError(f"devices differ: p {p.device}, g {g.device}, v "
                          f"{v.device}")
-    if p.device.type not in ("cuda", "cpu"):
+    if p.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no fused_sgd kernel for device {p.device}")
 
 
@@ -80,10 +81,10 @@ def fused_sgd(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """``v ← μ·v + g; p ← p − η·v`` in place; returns ``(p, v)``. The
     kernel on CUDA tensors (contiguous, any shape and start offset), the
-    plain version on CPU tensors."""
+    plain version on CPU and meta tensors."""
     global LAUNCHES
     _check(p, g, v)
-    if p.device.type == "cpu":
+    if p.device.type != "cuda":
         return fused_sgd_plain(p, g, v, lr, momentum)
     if not (p.is_contiguous() and g.is_contiguous() and v.is_contiguous()):
         raise ValueError("fused_sgd takes contiguous tensors on the card")

@@ -27,11 +27,22 @@ A rank holds the block of each leaf that its coordinates pick
 (:mod:`repro_torch.launch.train`) and the server
 (:mod:`repro_torch.launch.serve`) shard the batch over the replica axes
 and every weight over ``model`` by :func:`param_pspecs`
-(:func:`shard_params`, :func:`init_local_params`); the forward then runs
-tensor-parallel with explicit collectives
-(:mod:`repro_torch.core.device_agg`). The SSM, hybrid and
-encoder-decoder families are not split over ``model`` yet
-(:func:`check_tp_family`).
+(:func:`shard_params`, :func:`init_local_params`); the forward of every
+family then runs tensor-parallel with explicit collectives
+(:mod:`repro_torch.core.device_agg`). What ``model`` does not divide stays
+whole, as in the reference.
+
+Two layouts differ from the reference's, with the same numbers (under
+GSPMD a layout is only storage; a port rank computes on its blocks):
+
+* a Mamba-2 cache's B and C conv histories (``conv_b``, ``conv_c``, C =
+  d_state) stay whole on every rank, where the reference splits them over
+  ``model`` whenever d_state divides: a port rank computes B and C whole
+  (``in_b``, ``in_c`` are replicated);
+* Mamba-2's stacked ``a_log`` (L, H) splits its heads, where the
+  reference, which tells Mamba-1's (di, ds) from it by the last dim,
+  splits the layer axis when H equals d_state (zamba2's smoke width: 8
+  heads, d_state 8; at full width 80 and 64).
 """
 from __future__ import annotations
 
@@ -123,8 +134,10 @@ def _param_rule(name: str, shape: tuple[int, ...], cfg: ModelConfig,
             return ("model",) if mh_ok else (None,)
         return ("model",) if di_ok else (None,)
     if name == "a_log":
-        if len(shape) >= 2 and shape[-1] == (cfg.ssm.d_state if cfg.ssm
-                                             else 0):     # mamba1 (di, ds)
+        # Mamba-1's (di, ds) or Mamba-2's (H,), told apart by the version:
+        # the reference tells them by the shape, which reads a stacked
+        # Mamba-2 (L, H) as (di, ds) when H == d_state (ROADMAP §3)
+        if cfg.ssm is not None and cfg.ssm.version == 1:
             return ("model", None) if di_ok else (None, None)
         return ("model",) if mh_ok else (None,)
     if name == "x_proj":
@@ -259,6 +272,8 @@ def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh,
             # (L,B,di,ds) v1 | (L,B,H,hd,ds) v2
             third = "model" if leaf.shape[2] % tp == 0 else None
             return tuple([None, bspec, third] + [None] * (nd - 3))
+        if name in ("conv_b", "conv_c"):      # Mamba-2's B/C: whole
+            return tuple([None, bspec] + [None] * (nd - 2))
         if name.startswith("conv"):           # (L,B,K-1,C)
             c = leaf.shape[-1]
             last = "model" if c % tp == 0 else None
@@ -277,23 +292,6 @@ def decode_token_pspec(shape: ShapeConfig, mesh) -> tuple:
 # ---------------------------------------------------------------------------
 # A rank's blocks
 # ---------------------------------------------------------------------------
-
-#: the families whose forward runs split over ``model``
-TP_FAMILIES = ("dense", "moe", "vlm")
-
-
-def check_tp_family(cfg: ModelConfig, mesh) -> None:
-    """Raise for a family that is not split over ``model`` yet, when the
-    mesh's ``model`` axis has more than one rank."""
-    from repro_torch.models import registry
-    if _axis_size(mesh, "model") > 1 and (
-            cfg.family not in TP_FAMILIES or registry.is_encdec(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not run split over "
-            f"the model axis yet (ROADMAP queue 1: tensor parallelism for "
-            f"the SSM, hybrid and encoder-decoder families); use a mesh "
-            f"with model = 1")
-
 
 def _entry_axes(entry) -> tuple[str, ...]:
     if entry is None:
@@ -382,7 +380,6 @@ def shard_params(params: Mapping, cfg: ModelConfig, mesh,
     """Each whole leaf cut to this rank's ``model``-axis block (a copy); a
     leaf already of its block's shape stays as it is, so a tree of blocks
     passes through (as does every leaf when ``model`` has one rank)."""
-    check_tp_family(cfg, mesh)
     specs = _tp_specs(cfg, mesh, plan)
     local = local_param_shapes(cfg, mesh, plan)
     out = {}
@@ -418,8 +415,7 @@ def init_local_params(gen: torch.Generator, cfg: ModelConfig, mesh,
     whole in ``init_params``' order, its block kept and the rest freed
     before the next draw, so the blocks are those of the one-device init
     and the peak is one whole leaf beside the blocks."""
-    from repro_torch.models import registry, transformer
-    check_tp_family(cfg, mesh)
+    from repro_torch.models import registry
     if _axis_size(mesh, "model") == 1:
         return registry.init_params(gen, cfg)
     tp = _axis_size(mesh, "model")
@@ -430,13 +426,15 @@ def init_local_params(gen: torch.Generator, cfg: ModelConfig, mesh,
             return t
         return t[model_block(spec, t.shape, mesh)].clone()
 
-    return transformer.init_params(gen, cfg, keep=keep)
+    return registry.init_params(gen, cfg, keep=keep)
 
 
-def kv_length_axes(cache_specs_tree: Mapping) -> tuple[str, ...]:
-    """The mesh axes that split a decode cache's length (its ``k`` spec's
-    third entry), () when none does."""
-    spec = cache_specs_tree.get("k")
+def kv_length_axes(cache_specs_tree: Mapping, key: str = "k"
+                   ) -> tuple[str, ...]:
+    """The mesh axes that split a decode cache's length (the third entry of
+    its ``key`` spec: ``k`` for the self-attention ring, ``xk`` for an
+    encoder-decoder's cross-attention cache), () when none does."""
+    spec = cache_specs_tree.get(key)
     return _entry_axes(spec[2]) if spec else ()
 
 

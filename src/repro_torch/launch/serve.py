@@ -14,9 +14,11 @@ Under a mesh the step follows the reference's partition specs: each rank
 holds its ``model``-axis block of every weight (``param_pspecs``), its
 rows of the batch and its block of the cache (``cache_pspecs``: kv heads
 over ``model``, or the ring's length where the kv heads do not divide),
-the step runs tensor-parallel, and the logits are all-gathered to the
-whole (B, 1, V) on every rank. The SSM, hybrid and encoder-decoder
-families run on a mesh only with ``model`` = 1.
+the step runs tensor-parallel, every family alike, and the logits are
+all-gathered to the whole (B, 1, V) on every rank. An encoder-decoder's
+cross-attention cache splits as the self-attention ring does (its kv
+heads, or its 1,500 encoder positions over ``model``); a Mamba cache holds
+this rank's channels and heads.
 
 Run (the smoke configuration, on the CPU)::
 
@@ -88,11 +90,11 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
         return serve_step
     if mesh is None:
         raise ValueError("a sharding plan needs a mesh")
-    parts.check_tp_family(cfg, mesh)
     plan = plan or ShardingPlan(grad_sharding="none")
     c_specs = parts.cache_pspecs(cfg, shape, mesh, cache_like)
     t_spec = parts.decode_token_pspec(shape, mesh)
     length_axes = parts.kv_length_axes(c_specs)
+    cross_axes = parts.kv_length_axes(c_specs, "xk")
     tp = parts.axis_sizes(mesh).get("model", 1)
     p_local = parts.local_param_shapes(cfg, mesh, plan)
     rows = device_agg.replica_size(mesh) > 1 and t_spec[0] is not None
@@ -116,8 +118,9 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
         cache = place(c_specs, cache, cache_like)
         tokens = tokens[parts.rank_block(t_spec, tokens.shape, mesh)]
         with ctx():
-            logits, cache = models.decode_step(params, cfg, tokens, cache,
-                                               length_axes=length_axes)
+            logits, cache = models.decode_step(
+                params, cfg, tokens, cache, length_axes=length_axes,
+                cross_length_axes=cross_axes)
         if logits.shape[-1] != cfg.vocab:
             logits = device_agg.all_gather_model(mesh, logits, -1)
         if rows:
@@ -175,9 +178,10 @@ def serve_loop(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 8,
             frames = torch.randn(
                 (batch, cfg.encoder_seq, fd), device=dev,
                 generator=torch.Generator(device=dev).manual_seed(seed + 1))
-            cache = encdec.init_cache(cfg, batch, max_len, params=params,
-                                      frames=frames, device=dev)
-            cache_like = map_tree(lambda t: t.to("meta"), cache)
+            cache_like = encdec.cache_specs(cfg, batch, max_len)
+            with meshctx.use_mesh(mesh):
+                cache = encdec.init_cache(cfg, batch, max_len, params=params,
+                                          frames=frames, device=dev)
         else:
             cache_like = models.cache_specs(cfg, batch, max_len)
             with meshctx.use_mesh(mesh):

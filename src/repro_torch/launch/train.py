@@ -274,7 +274,6 @@ def jit_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     gs = plan.grad_sharding
     if gs not in PLANS:
         raise ValueError(f"grad_sharding must be one of {PLANS}, got {gs!r}")
-    parts.check_tp_family(cfg, mesh)
     rep = device_agg.replica_axes(mesh)
     b_specs = parts.batch_pspecs(cfg, shape, mesh)
     tp = _tp(mesh)

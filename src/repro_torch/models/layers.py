@@ -13,7 +13,9 @@ probability-value product run in f32 (the reference's einsums ask for an
 f32 result, ``preferred_element_type``; here q, k, the rounded
 probabilities and v are cast to f32 before the product); the loss is
 taken in f32. RMSNorm runs through the hand-written kernel
-(:mod:`repro_torch.kernels.rmsnorm`) on the card.
+(:mod:`repro_torch.kernels.rmsnorm`) on the card; a row cut over the ranks
+of the ``model`` axis (Mamba-2's gated norm under tensor parallelism)
+through its split route (:func:`rmsnorm_split`).
 
 One-token decode runs against a ring-buffer KV cache
 (:func:`decode_attention_block`), with the grouped-query form of
@@ -116,6 +118,52 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
     """``x·rsqrt(mean(x²) + eps)·γ`` over the last axis, in x's type."""
     return _RMSNorm.apply(x, gamma, eps)
+
+
+class _RMSNormSplit(torch.autograd.Function):
+    """RMSNorm of rows whose last axis is cut over the ranks of ``group``
+    (each rank holds its block of x and of γ; ``d_total`` is the whole
+    width). Forward: Σx² of the block by the rmsnorm kernel's split route,
+    one all-reduce of a (rows,) f32 over ``group``, then the kernel's scale
+    launch. Backward, plain PyTorch in f32, with one all-reduce of a
+    (rows,) f32:
+
+        dx = r·(gy − x̂·Σ_ranks Σ_block(gy·x̂)/d_total),  gy = dy·γ
+
+    and dγ this rank's block of Σ_rows dy·x̂."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps, d_total, group):
+        rows = x.reshape(-1, x.shape[-1])
+        ssq = _rn.rmsnorm_sumsq(rows)
+        dist.all_reduce(ssq, group=group)
+        out, rstd = _rn.rmsnorm_scale(rows, ssq, gamma, eps, d_total)
+        ctx.save_for_backward(rows, gamma, rstd)
+        ctx.d_total, ctx.group = d_total, group
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        rows, gamma, rstd = ctx.saved_tensors
+        r = rstd[:, None]
+        xhat = rows.to(torch.float32) * r
+        dyf = dy.reshape(rows.shape).to(torch.float32)
+        dgamma = None
+        if ctx.needs_input_grad[1]:
+            dgamma = (dyf * xhat).sum(dim=0).to(gamma.dtype)
+        gy = dyf * gamma.to(torch.float32)
+        dot = torch.sum(gy * xhat, dim=-1, keepdim=True)
+        dist.all_reduce(dot, group=ctx.group)
+        dx = r * (gy - xhat * (dot / ctx.d_total))
+        return dx.to(rows.dtype).reshape(dy.shape), dgamma, None, None, None
+
+
+def rmsnorm_split(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+                  d_total: int, group) -> torch.Tensor:
+    """:func:`rmsnorm` of rows of ``d_total`` elements, of which this rank
+    holds a block (x's last axis, and γ's) and the other ranks of
+    ``group`` the rest (:class:`_RMSNormSplit`)."""
+    return _RMSNormSplit.apply(x, gamma, eps, d_total, group)
 
 
 # ---------------------------------------------------------------------------
@@ -483,17 +531,29 @@ def decode_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                             window=cfg.sliding_window, k_valid=k_valid,
                             grouped=cfg.decode_grouped_attn)
         return attn_out(p, o, cfg)
-    # the length is split: every head's scores against this rank's slots
-    qa = q if ax is None else _da.all_gather_model(ax.mesh, q, 2)
     bias = _mask_bias(pos, k_pos, causal=True, window=cfg.sliding_window,
                       k_valid=k_valid)
-    m, l, acc = _attention_partial(qa, _expand_kv(kk, qa.shape[2]),
-                                   _expand_kv(vv, qa.shape[2]), bias)
+    return attn_out(p, attention_length_split(q, kk, vv, bias, length_axes,
+                                              ax), cfg)
+
+
+def attention_length_split(q, k, v, bias, length_axes: tuple, ax
+                           ) -> torch.Tensor:
+    """Attention of q (B,S,H_local,D) over keys whose length is split over
+    the mesh axes ``length_axes``: k, v (B,T_local,KH,D) are this rank's
+    block of the keys, ``bias`` (S,T_local) its f32 mask. Every head's
+    scores against this rank's keys (q's heads all-gathered over the
+    ``model`` axis ``ax`` when they are split), then
+    :func:`device_agg.combine_partial_softmax` joins the blocks; returns
+    this rank's heads (B,S,H_local,D) in q's type."""
+    qa = q if ax is None else _da.all_gather_model(ax.mesh, q, 2)
+    m, l, acc = _attention_partial(qa, _expand_kv(k, qa.shape[2]),
+                                   _expand_kv(v, qa.shape[2]), bias)
     o = _da.combine_partial_softmax(meshctx.get_mesh(), length_axes, m, l,
                                     acc).to(q.dtype)
     if ax is not None:
         o = o[:, :, ax.index * q.shape[2]:(ax.index + 1) * q.shape[2]]
-    return attn_out(p, o, cfg)
+    return o
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, moe, ssm, transformer
+from repro_torch.models.layers import keep_whole
 
 #: leaves that stay f32 whatever ``cfg.param_dtype``: the MoE router and
 #: the SSM's ``dt_bias``, ``a_log`` and ``d_skip``
@@ -53,8 +54,11 @@ def param_specs(cfg: ModelConfig) -> dict:
             for name, shape in param_shapes(cfg).items()}
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    return _family(cfg).init_params(gen, cfg)
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                keep=keep_whole) -> dict:
+    """``keep(leaf, tensor)``: what is kept of each drawn weight (a rank's
+    block: ``partitioning.init_local_params``); default every leaf whole."""
+    return _family(cfg).init_params(gen, cfg, keep=keep)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -68,13 +72,14 @@ def forward(params, cfg: ModelConfig, batch):
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache,
-                length_axes: tuple = ()):
+                length_axes: tuple = (), cross_length_axes: tuple = ()):
     """``length_axes``: the mesh axes that split the KV ring's length
-    (``transformer.decode_step``)."""
-    if length_axes:
-        return transformer.decode_step(params, cfg, tokens, cache,
-                                       length_axes)
-    return _family(cfg).decode_step(params, cfg, tokens, cache)
+    (``transformer.decode_step``); ``cross_length_axes``: those that split
+    an encoder-decoder's cross-attention cache (``encdec.decode_step``)."""
+    if is_encdec(cfg):
+        return encdec.decode_step(params, cfg, tokens, cache, length_axes,
+                                  cross_length_axes)
+    return transformer.decode_step(params, cfg, tokens, cache, length_axes)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,

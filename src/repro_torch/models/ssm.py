@@ -24,6 +24,26 @@ over leaf for leaf. ``dt_bias``, ``a_log`` and ``d_skip`` are f32 whatever
 
 Decode is a single-step state update against a cache of the SSM state
 (f32) and the conv's last K - 1 inputs (:func:`mamba_cache_specs`).
+
+Tensor parallelism over ``model`` (the reference's layout,
+``partitioning._param_rule``): a block runs split when its ``in_x`` holds
+a block of ``d_inner`` (``partitioning.shard_params``), under a mesh with
+a ``model`` axis (``meshctx``); every local width is read from a weight.
+
+* Mamba-1: ``in_x``, ``in_z``, the conv, ``dt_proj``, ``dt_bias``,
+  ``a_log`` and ``d_skip`` are column-parallel on ``d_inner``; ``x_proj``
+  and ``out_proj`` row-parallel (one all-reduce each). The all-reduced
+  ``dt_raw``, B and C feed every rank's channels, so their gradient is
+  summed over the ranks (``SumGrad``), as is the block input's.
+* Mamba-2: ``in_x``, ``in_z``, the x conv and ``norm_g`` split on
+  ``d_inner``; ``in_dt``, ``dt_bias``, ``a_log`` and ``d_skip`` over the
+  SSD heads; ``in_b``, ``in_c`` and their convs stay whole and their
+  outputs take ``SumGrad``; ``out_proj`` is row-parallel. The gated norm
+  normalises a row cut over the ranks: :func:`layers.rmsnorm_split`, the
+  rmsnorm kernel's split route on the card.
+* The decode caches are a rank's blocks: the state and the x history
+  split with ``d_inner`` and the heads, the B and C histories whole
+  (``partitioning.cache_pspecs``).
 """
 from __future__ import annotations
 
@@ -33,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models import layers as L
+from repro_torch.models.layers import dense_init, keep_whole, rmsnorm
 
 #: leaves that stay f32 whatever ``cfg.param_dtype``
 F32_LEAVES = ("dt_bias", "a_log", "d_skip")
@@ -76,11 +97,13 @@ def conv_step(cache: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
 
 
 def _init(gen: torch.Generator, shapes: dict, fan_in: dict,
-          dtype: torch.dtype, lead: tuple) -> dict:
+          dtype: torch.dtype, lead: tuple, keep) -> dict:
     """``dense_init`` for the leaves named in ``fan_in`` (their fan-in),
-    zeros for the others but the f32 leaves, which the caller sets."""
-    return {k: dense_init(gen, lead + s, fan_in[k], dtype) if k in fan_in
-            else torch.zeros(lead + s, dtype=dtype, device=gen.device)
+    zeros for the others but the f32 leaves, which the caller sets; each
+    through ``keep(leaf, tensor)`` as it is drawn."""
+    return {k: keep(k, dense_init(gen, lead + s, fan_in[k], dtype)
+                    if k in fan_in else
+                    torch.zeros(lead + s, dtype=dtype, device=gen.device))
             for k, s in shapes.items() if k not in F32_LEAVES}
 
 
@@ -98,19 +121,22 @@ def mamba1_shapes(cfg: ModelConfig) -> dict:
 
 
 def mamba1_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-                lead: tuple = ()) -> dict:
-    """The Mamba-1 weights; ``lead`` prepends axes (the layer stack)."""
+                lead: tuple = (), keep=keep_whole) -> dict:
+    """The Mamba-1 weights; ``lead`` prepends axes (the layer stack);
+    ``keep(leaf, tensor)`` returns what is kept of each (a rank's
+    block)."""
     d, di, ds, r, k = (cfg.d_model, d_inner(cfg), cfg.ssm.d_state,
                        dt_rank(cfg), cfg.ssm.d_conv)
     p = _init(gen, mamba1_shapes(cfg),
               {"in_x": d, "in_z": d, "conv_w": k, "x_proj": di, "dt_proj": r,
-               "out_proj": di}, dtype, lead)
+               "out_proj": di}, dtype, lead, keep)
     dev = gen.device
     a = torch.log(torch.arange(1, ds + 1, dtype=_F32, device=dev))
     p.update(dt_bias=torch.full(lead + (di,), -4.6, device=dev),  # softplus ~ 0.01
              a_log=a.expand(lead + (di, ds)).clone(),
              d_skip=torch.ones(lead + (di,), device=dev))
-    return p
+    return {name: keep(name, t) if name in F32_LEAVES else t
+            for name, t in p.items()}
 
 
 def mamba1_ssm(dt, bmat, cmat, xc, a, h0, chunk: int):
@@ -142,13 +168,18 @@ def mamba1_block(p: dict, x: torch.Tensor, cfg: ModelConfig, h0=None,
                  conv_cache=None, single_step: bool = False):
     """x: (B,S,D) full-sequence, or (B,1,D) with ``single_step``.
 
-    Returns (out (B,S,D), (h_last, conv_cache)).
-    """
+    Returns (out (B,S,D), (h_last, conv_cache)). Split over ``model`` (a
+    block of ``d_inner`` in ``in_x``) the state, the conv history and the
+    channels are this rank's."""
     cd = cfg.compute_dtype
     ds, r = cfg.ssm.d_state, dt_rank(cfg)
+    di_ = p["in_x"].shape[-1]
+    ax = L._split_axis(di_, d_inner(cfg))
     b = x.shape[0]
     if h0 is None:
-        h0 = torch.zeros((b, d_inner(cfg), ds), dtype=_F32, device=x.device)
+        h0 = torch.zeros((b, di_, ds), dtype=_F32, device=x.device)
+    if ax is not None:
+        x = L._sum_grad(x, ax)
 
     x_in = torch.einsum("bsd,de->bse", x, p["in_x"].to(cd))
     z = torch.einsum("bsd,de->bse", x, p["in_z"].to(cd))
@@ -162,6 +193,8 @@ def mamba1_block(p: dict, x: torch.Tensor, cfg: ModelConfig, h0=None,
         conv_cache = None
 
     proj = torch.einsum("bsd,de->bse", xc, p["x_proj"].to(cd))
+    if ax is not None:                   # row-parallel, read by every rank
+        proj = L._sum_grad(L.row_sum(proj, ax.group), ax)
     dt_raw, bmat, cmat = torch.split(proj, [r, ds, ds], dim=-1)
     dt = F.softplus(torch.einsum("bsr,rd->bsd", dt_raw, p["dt_proj"].to(cd))
                     .to(_F32) + p["dt_bias"])
@@ -180,6 +213,8 @@ def mamba1_block(p: dict, x: torch.Tensor, cfg: ModelConfig, h0=None,
     y = y + xc.to(_F32) * p["d_skip"]
     y = y.to(cd) * F.silu(z)
     out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(cd))
+    if ax is not None:
+        out = L.row_sum(out, ax.group)
     return out, (h_last, conv_cache)
 
 
@@ -199,19 +234,22 @@ def mamba2_shapes(cfg: ModelConfig) -> dict:
 
 
 def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-                lead: tuple = ()) -> dict:
-    """The Mamba-2 weights; ``lead`` prepends axes (the layer stack)."""
+                lead: tuple = (), keep=keep_whole) -> dict:
+    """The Mamba-2 weights; ``lead`` prepends axes (the layer stack);
+    ``keep(leaf, tensor)`` returns what is kept of each (a rank's
+    block)."""
     d, di, k = cfg.d_model, d_inner(cfg), cfg.ssm.d_conv
     h = m2_heads(cfg)
     p = _init(gen, mamba2_shapes(cfg),
               {"in_x": d, "in_z": d, "in_b": d, "in_c": d, "in_dt": d,
                "conv_xw": k, "conv_bw": k, "conv_cw": k, "out_proj": di},
-              dtype, lead)
+              dtype, lead, keep)
     dev = gen.device
-    p.update(dt_bias=torch.full(lead + (h,), -4.6, device=dev),
-             a_log=torch.zeros(lead + (h,), device=dev),
-             d_skip=torch.ones(lead + (h,), device=dev),
-             norm_g=torch.ones(lead + (di,), dtype=dtype, device=dev))
+    rest = dict(dt_bias=torch.full(lead + (h,), -4.6, device=dev),
+                a_log=torch.zeros(lead + (h,), device=dev),
+                d_skip=torch.ones(lead + (h,), device=dev),
+                norm_g=torch.ones(lead + (di,), dtype=dtype, device=dev))
+    p.update({name: keep(name, t) for name, t in rest.items()})
     return p
 
 
@@ -256,19 +294,31 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, h0=None,
                  conv_cache=None, single_step: bool = False):
     """Mamba-2 block. x: (B,S,D); conv_cache: dict(x=, b=, c=) histories.
 
-    Returns (out, (h_last, conv_cache)).
-    """
+    Returns (out, (h_last, conv_cache)). Split over ``model`` (a block of
+    ``d_inner`` in ``in_x``, of the heads in ``in_dt``) the state, the x
+    history and the channels are this rank's; the B and C histories are
+    whole."""
     cd = cfg.compute_dtype
-    di_ = d_inner(cfg)
-    nh, hd = m2_heads(cfg), cfg.ssm.head_dim
+    di_ = p["in_x"].shape[-1]
+    nh, hd = p["in_dt"].shape[-1], cfg.ssm.head_dim
+    ax = L._split_axis(di_, d_inner(cfg))
+    if nh * hd != di_:
+        raise ValueError(f"{cfg.name}: {nh} SSD heads of {hd} do not cover "
+                         f"this rank's {di_} channels (split d_inner and the "
+                         f"heads over the same ranks)")
     b, s, _ = x.shape
     if h0 is None:
         h0 = torch.zeros((b, nh, hd, cfg.ssm.d_state), dtype=_F32,
                          device=x.device)
 
-    proj = lambda name: torch.einsum("bsd,de->bse", x, p[name].to(cd))
-    z, xr, br, cr = proj("in_z"), proj("in_x"), proj("in_b"), proj("in_c")
-    dt_raw = torch.einsum("bsd,dh->bsh", x, p["in_dt"].to(cd))
+    # the split projections read x with its gradient summed over the
+    # ranks; the whole in_b/in_c read it as it is (their outputs take the
+    # sum below)
+    xs = x if ax is None else L._sum_grad(x, ax)
+    proj = lambda name, v=xs: torch.einsum("bsd,de->bse", v, p[name].to(cd))
+    z, xr, br, cr = proj("in_z"), proj("in_x"), proj("in_b", x), \
+        proj("in_c", x)
+    dt_raw = torch.einsum("bsd,dh->bsh", xs, p["in_dt"].to(cd))
 
     convs = (("x", xr, "conv_xw", "conv_xb"), ("b", br, "conv_bw", "conv_bb"),
              ("c", cr, "conv_cw", "conv_cb"))
@@ -284,6 +334,8 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, h0=None,
                 for _, v, w, bias in convs]
         conv_cache = None
     xr, br, cr = outs
+    if ax is not None:                   # whole, read by every rank's heads
+        br, cr = L._sum_grad(br, ax), L._sum_grad(cr, ax)
 
     xh = xr.reshape(b, s, nh, hd)
     dt = F.softplus(dt_raw.to(_F32) + p["dt_bias"])               # (B,S,H)
@@ -301,16 +353,26 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, h0=None,
 
     y = y + xh.to(_F32) * p["d_skip"][:, None]
     y = y.reshape(b, s, di_).to(cd)
-    # gated RMSNorm (Mamba-2): norm(y * silu(z))
-    y = rmsnorm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
+    # gated RMSNorm (Mamba-2): norm(y * silu(z)), over the whole d_inner
+    g = y * F.silu(z)
+    if ax is None:
+        y = rmsnorm(g, p["norm_g"], cfg.norm_eps)
+    else:
+        y = L.rmsnorm_split(g, p["norm_g"], cfg.norm_eps, d_inner(cfg),
+                            ax.group)
     out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(cd))
+    if ax is not None:
+        out = L.row_sum(out, ax.group)
     return out, (h_last, conv_cache)
 
 
 def mamba_cache_specs(cfg: ModelConfig, batch: int,
                       dtype: torch.dtype = torch.float32) -> dict:
-    """One layer's decode cache on the meta device (the caller prepends the
-    layer axis): the SSM state in f32, the conv histories in ``dtype``."""
+    """One layer's whole decode cache on the meta device (the caller
+    prepends the layer axis): the SSM state in f32, the conv histories in
+    ``dtype``. Under tensor parallelism a rank holds its block of it
+    (``transformer.cache_specs`` cuts it by ``partitioning.cache_pspecs``),
+    at the local widths the split blocks read from their weights."""
     k, di, ds = cfg.ssm.d_conv, d_inner(cfg), cfg.ssm.d_state
     meta = lambda *shape, dt=dtype: torch.empty(shape, dtype=dt, device="meta")
     if cfg.ssm.version == 1:

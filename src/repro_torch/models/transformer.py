@@ -66,16 +66,10 @@ _ATTN_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Raise for a family this module does not hold, and, under a mesh
-    whose ``model`` axis has more than one rank, for one that does not run
-    split over it yet (``partitioning.check_tp_family``)."""
+    """Raise for a family this module does not hold."""
     if cfg.family not in DECODER_FAMILIES:
         raise ValueError(f"{cfg.name}: no decoder-only family "
                          f"{cfg.family!r}")
-    mesh = meshctx.get_mesh()
-    if mesh is not None:
-        from repro_torch.launch.partitioning import check_tp_family
-        check_tp_family(cfg, mesh)
 
 
 def _layer_shapes(cfg: ModelConfig) -> dict:
@@ -135,7 +129,7 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
         init = SSM.mamba1_init if cfg.family == "ssm" else SSM.mamba2_init
         return {"ln": torch.ones((n, cfg.d_model), dtype=dtype,
                                  device=gen.device),
-                "mamba": init(gen, cfg, dtype, lead=(n,))}
+                "mamba": init(gen, cfg, dtype, lead=(n,), keep=keep)}
     return _block_init(gen, cfg, dtype, (n,), cfg.moe is not None, keep)
 
 
@@ -144,9 +138,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     """Seeded parameters on the generator's device. A ``torch.Generator``
     does not replay ``jax.random``: to compute with the reference's
     weights, carry them over with ``convert.params_from_jax``.
-    ``keep(leaf, tensor)`` takes each drawn weight of an attention family
-    and returns what is kept of it (``partitioning.init_local_params``:
-    a rank's block); the draws are the same whatever it keeps."""
+    ``keep(leaf, tensor)`` takes each drawn weight and returns what is kept
+    of it (``partitioning.init_local_params``: a rank's block); the draws
+    are the same whatever it keeps."""
     _check_family(cfg)
     dt = cfg.param_dtype
     p = {"embed": keep("embed", L.embed_init(gen, (cfg.vocab, cfg.d_model),
@@ -157,7 +151,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         p["lm_head"] = keep("lm_head", L.embed_init(
             gen, (cfg.d_model, cfg.vocab), dt))
     if cfg.family == "hybrid":
-        p.update(_join("shared_attn.", _block_init(gen, cfg, dt, (), False)))
+        p.update(_join("shared_attn.", _block_init(gen, cfg, dt, (), False,
+                                                   keep)))
     return p
 
 
@@ -229,7 +224,8 @@ def forward(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     """tokens (B,S) integer -> logits (B,S,V) in the compute dtype.
 
     Under a mesh (``meshctx``) whose ``model`` axis splits the weights
-    (``partitioning.shard_params``) the forward is tensor-parallel and the
+    (``partitioning.shard_params``) the forward is tensor-parallel, every
+    family alike (the Mamba blocks: :mod:`repro_torch.models.ssm`), and the
     logits are this rank's vocabulary block (B,S,V/tp), as the LM head
     holds it; ``device_agg.all_gather_model(mesh, logits, -1)`` joins
     them."""
@@ -386,7 +382,7 @@ def decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             if every and (i + 1) % every == 0:
                 g = (i + 1) // every - 1
                 x = _decode_block(shared, x, cfg, cache["k"][g],
-                                  cache["v"][g], idx)
+                                  cache["v"][g], idx, length_axes)
     idx.add_(1)
     return _logits(params, cfg, x), cache
 

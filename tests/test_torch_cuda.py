@@ -988,3 +988,136 @@ def test_model1_serve_step_is_the_meshless_step_on_card(arch):
     for key in ("idx", "k", "v"):
         assert torch.equal(caches[0][key], caches[1][key])
     torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism for the SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+SPLIT_ROWS = [(4, 1280, 4), (4, 2560, 2), (1024, 1280, 4), (3, 40, 5),
+              (5, 2047, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,blocks", SPLIT_ROWS)
+def test_rmsnorm_split_route_within_tolerance_on_card(rows, d, blocks,
+                                                      dtype):
+    """The split route (Mamba-2's gated norm under TP): each block's sum of
+    squares against its plain version (rtol 1e-5), the blocks' scale
+    launches on the summed squares against their plain version and,
+    joined, against the whole-row kernel (f32: rtol 1e-5, atol 1e-6; bf16:
+    one ulp); one block with its own sum bit for bit the whole-row kernel;
+    two launches a block, counted in SPLIT_LAUNCHES only. Widths without
+    16-byte vectors (40 f32 blocks, 2047) included."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(rows + d)
+    width = d * blocks
+    x = (torch.randn(rows, width, generator=g, device="cuda") * 3).to(dtype)
+    gamma = torch.randn(width, generator=g, device="cuda")
+    cuts = [slice(i * d, (i + 1) * d) for i in range(blocks)]
+    before, split_before = rn.LAUNCHES, rn.SPLIT_LAUNCHES
+    ssq = [rn.rmsnorm_sumsq(x[:, c]) for c in cuts]
+    total = torch.stack(ssq).sum(0)
+    outs = [rn.rmsnorm_scale(x[:, c], total, gamma[c], 1e-5, width)
+            for c in cuts]
+    torch.cuda.synchronize()
+    assert rn.SPLIT_LAUNCHES - split_before == 2 * blocks
+    assert rn.LAUNCHES == before
+    for c, s in zip(cuts, ssq):
+        want = rn.rmsnorm_sumsq_plain(x[:, c])
+        assert bool(((s - want).abs() <= 1e-5 * want.abs()).all())
+
+    def close(got, want):
+        if dtype == torch.bfloat16:
+            bits = lambda t: t.view(torch.int16).to(torch.int32)
+            ordered = lambda t: torch.where(bits(t) < 0, -(bits(t) & 0x7FFF),
+                                            bits(t))
+            return int((ordered(got) - ordered(want)).abs().max()) <= 1
+        return bool(((got - want).abs() <= 1e-6 + 1e-5 * want.abs()).all())
+
+    for c, (out, rstd) in zip(cuts, outs):
+        want, want_rstd = rn.rmsnorm_scale_plain(x[:, c], total, gamma[c],
+                                                 1e-5, width)
+        assert close(out, want)
+        assert bool(((rstd - want_rstd).abs() <= 1e-5 * want_rstd).all())
+    if width <= rn.MAX_D:
+        whole, _ = rn.rmsnorm(x, gamma)
+        assert close(torch.cat([o for o, _ in outs], dim=1), whole)
+    one, _ = rn.rmsnorm(x[:, cuts[0]], gamma[cuts[0]])
+    alone, _ = rn.rmsnorm_scale(x[:, cuts[0]], rn.rmsnorm_sumsq(
+        x[:, cuts[0]]), gamma[cuts[0]], 1e-5, d)
+    assert torch.equal(alone, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b",
+                                  "whisper-tiny"])
+def test_family_model1_serve_step_is_the_meshless_step_on_card(arch):
+    """The SSM, hybrid and encoder-decoder families' make_serve_step on a
+    one-rank NCCL group's (1, 1) mesh, none plan, at the smoke config (f32
+    compute, f32 cache; whisper's cross-attention cache built under the
+    mesh from the same frames): 12 decode steps equal the mesh-less step
+    bit for bit (logits and every cache leaf), with as many rmsnorm
+    launches and no split-route launch (model = 1 splits nothing)."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig, ShardingPlan
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import encdec, meshctx
+    from repro_torch.models import registry as models
+
+    _need_card()
+    cfg = dataclasses.replace(get_arch(arch).smoke, remat=False,
+                              compute_dtype=torch.float32)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    shape = ShapeConfig("serve", seq_len=16, global_batch=2, kind="decode")
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    family = encdec if models.is_encdec(cfg) else models
+    like = family.cache_specs(cfg, 2, 16, torch.float32)
+    steps = [serve.make_serve_step(cfg, shape, mesh, like,
+                                   ShardingPlan(grad_sharding="none")),
+             serve.make_serve_step(cfg, shape, cache_like=like)]
+    frames = torch.randn((2, cfg.encoder_seq, cfg.frontend_dim or
+                          cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+
+    def cache():
+        if family is encdec:
+            return encdec.init_cache(cfg, 2, 16, params=params, frames=frames,
+                                     dtype=torch.float32, device="cuda")
+        return models.init_cache(cfg, 2, 16, torch.float32, "cuda")
+
+    with meshctx.use_mesh(mesh):
+        caches = [cache()]
+    caches.append(cache())
+    toks = torch.randint(0, cfg.vocab, (2, 12), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    split_before = rn.SPLIT_LAUNCHES
+    for i in range(12):
+        outs, launches = [], []
+        for j, step in enumerate(steps):
+            before = rn.LAUNCHES
+            logits, caches[j] = step(params, toks[:, i:i + 1], caches[j])
+            launches.append(rn.LAUNCHES - before)
+            outs.append(logits)
+        assert launches[0] == launches[1] == \
+            models.norms_per_decode_step(cfg)
+        assert torch.equal(outs[0], outs[1])
+    assert rn.SPLIT_LAUNCHES == split_before
+
+    def leaves(tree, prefix=""):
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + ".")
+            else:
+                yield prefix + k, v
+
+    for (ka, a), (kb, b) in zip(leaves(caches[0]), leaves(caches[1])):
+        assert ka == kb and torch.equal(a, b), ka
+    torch.distributed.destroy_process_group()

@@ -34,6 +34,9 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_import_leaves_no_jax_or_reference_in_sys_modules():
+    """Importing the port's modules, the dry run's included, loads neither
+    JAX nor the reference, nor torch's internal fake process group (the
+    dry run imports it when it builds a mesh)."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.smoke\n"
@@ -57,8 +60,10 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
         "import repro_torch.configs.chameleon\n"
         "import repro_torch.core.device_agg, repro_torch.launch.mesh\n"
         "import repro_torch.launch.partitioning, repro_torch.models.meshctx\n"
+        "import repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "             or m.endswith('distributed.fake_pg'))\n"
         "print(','.join(bad))\n")
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,

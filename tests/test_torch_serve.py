@@ -369,14 +369,13 @@ def test_make_serve_step_donates_or_copies_the_cache():
     assert same is cache and int(cache["idx"]) == 1
     assert torch.equal(cache["k"], new["k"]) and torch.equal(lg_keep,
                                                              lg_donate)
-    # a mesh serves the attention families split over "model"
-    # (tests/test_torch_tp.py); a family not split yet raises there, and a
-    # plan needs a mesh
+    # a mesh serves every family split over "model"
+    # (tests/test_torch_tp.py, tests/test_torch_tp_families.py): the SSM
+    # family's sharded step builds at model = 4; a plan needs a mesh
     ssm = _f32(get_arch("falcon-mamba-7b").smoke)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        serve.make_serve_step(ssm, shape, mesh=config.MeshConfig(
-            (1, 4), ("data", "model")), cache_like=models.cache_specs(
-                ssm, 2, 4))
+    assert callable(serve.make_serve_step(ssm, shape, mesh=config.MeshConfig(
+        (1, 4), ("data", "model")), cache_like=models.cache_specs(
+            ssm, 2, 4)))
     with pytest.raises(ValueError, match="needs a mesh"):
         serve.make_serve_step(cfg, shape, plan=config.ShardingPlan())
 

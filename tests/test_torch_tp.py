@@ -327,25 +327,34 @@ def test_init_local_params_are_blocks_of_init_params(runs, mesh):
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b",
                                   "whisper-tiny"])
-def test_families_not_split_raise(arch):
-    """The SSM, hybrid and encoder-decoder families raise
-    `NotImplementedError` naming the ROADMAP item at model > 1, from every
-    entry point; at model = 1 they pass."""
+def test_families_split_entry_points_build(arch):
+    """The SSM, hybrid and encoder-decoder families build through every
+    entry point at model = 4, on each rank's coordinates of (1, 4):
+    `shard_params` and `init_local_params` give the blocks of
+    `local_param_shapes` (the same bits, drawn or cut), and
+    `jit_train_step` (each plan) and the sharded `make_serve_step` build.
+    `TP_FAMILIES` and `check_tp_family` are gone."""
     cfg = get_arch(arch).smoke
-    mesh = MeshConfig((1, 4), ("data", "model"))
     shape = ShapeConfig("t", seq_len=4, global_batch=2, kind="decode")
-    match = "ROADMAP queue 1"
-    with pytest.raises(NotImplementedError, match=match):
-        parts.check_tp_family(cfg, mesh)
-    with pytest.raises(NotImplementedError, match=match):
-        parts.shard_params({}, cfg, mesh)
-    with pytest.raises(NotImplementedError, match=match):
-        parts.init_local_params(torch.Generator(), cfg, mesh)
-    with pytest.raises(NotImplementedError, match=match):
-        T.jit_train_step(cfg, shape, mesh, ShardingPlan(), adamw(1e-3))
-    with pytest.raises(NotImplementedError, match=match):
-        S.make_serve_step(cfg, shape, mesh, None)
-    parts.check_tp_family(cfg, MeshConfig((4, 1), ("data", "model")))
+    assert not hasattr(parts, "check_tp_family")
+    assert not hasattr(parts, "TP_FAMILIES")
+    whole = models.init_params(torch.Generator().manual_seed(3), cfg)
+    for r in range(4):
+        mesh = _FakeMesh((1, 4), ("data", "model"), (0, r))
+        local = parts.local_param_shapes(cfg, mesh)
+        blocks = parts.shard_params(whole, cfg, mesh)
+        assert {k: tuple(t.shape) for k, t in blocks.items()} == local
+        assert any(local[k] != tuple(t.shape) for k, t in whole.items())
+        drawn = parts.init_local_params(torch.Generator().manual_seed(3),
+                                        cfg, mesh)
+        assert drawn.keys() == blocks.keys()
+        assert all(torch.equal(drawn[k], blocks[k]) for k in blocks)
+        for gs in T.PLANS:
+            assert callable(T.jit_train_step(
+                cfg, shape, mesh, ShardingPlan(grad_sharding=gs),
+                adamw(1e-3)))
+        assert callable(S.make_serve_step(
+            cfg, shape, mesh, models.cache_specs(cfg, 2, 4)))
 
 
 class _FakeMesh:
@@ -406,3 +415,35 @@ def test_local_param_shapes_and_cache_layouts():
     specs = parts.cache_pspecs(smoke, shape, mesh, like)
     assert specs["k"] == (None, "data", "model", None, None)
     assert parts.kv_length_axes(specs) == ("model",)
+
+
+def test_plans_on_three_axes_of_eight_ranks(tmp_path):
+    """The three plans on a (2, 2, 2) ("pod", "data", "model") mesh of 8
+    gloo ranks (`_torch_rank_tp_families.plans_8`): tinyllama's smoke
+    config at 2 layers and f32, AdamW at 1e-3, one step from the
+    reference's weights, against the reference's one-device step on the
+    same batch, at its plan check's tolerances
+    (`tests/test_distributed.py::test_gspmd_plans_agree`): loss within
+    1e-5, parameters within rtol 5e-4 / atol 1e-4."""
+    from repro.core.sharding import flatten as ref_flatten
+    from repro.launch.train import make_train_step as ref_step
+    from repro.optim import adamw as ref_adamw
+
+    cfg = _ref_cfg("tinyllama-1.1b")
+    tree = _ref_params(cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (8, 17))
+    opt = ref_adamw(1e-3)
+    params = jax.tree.map(jnp.asarray, tree)
+    batch = {"tokens": jnp.asarray(toks[:, :-1], jnp.int32),
+             "labels": jnp.asarray(toks[:, 1:], jnp.int32)}
+    new, _, m = jax.jit(ref_step(cfg, opt))(params, opt.init(params), batch)
+    want = np.asarray(ref_flatten(new)[0])
+    ranks = run_ranks(tmp_path, "_torch_rank_tp_families:plans_8", 8,
+                      lm=tree, tokens=toks)
+    for gs in T.PLANS:
+        got = ranks[0][gs]
+        assert abs(got["loss"] - float(m["loss"])) < 1e-5, gs
+        np.testing.assert_allclose(got["params"], want, rtol=5e-4,
+                                   atol=1e-4)
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r[gs]["params"], got["params"])
