@@ -203,7 +203,25 @@ Phases, each fatal on failure:
    (logits and cache; at ``model`` = 1 every TP wrapper takes no op),
    ``norms_per_decode_step`` rmsnorm launches a step.
    ``tools/multi_card.py`` runs the three families split over four cards,
-   where the gated norm takes the split route.
+   where the gated norm takes the split route;
+19. the examples (``repro_torch.examples``) through their ``main`` with
+   ``--device cuda``, their self-checks live: ``quickstart`` at the
+   reference's constants (20 × 100,000, M = 4, four topologies), plain and
+   ``--schedule pipelined --readahead-k 4 --codec qsgd8``; ``faulty_round``
+   at its defaults and ``--staleness-policy polynomial --hedge 2``;
+   ``compression_composition`` at its defaults: every value these print
+   (means, puts, gets, billed GB-s, peak memory, walls, costs, arrivals,
+   drops, retries, ``codec_error``) equal to a CPU session's, bit for bit;
+   ``million_clients`` at N = 10^3, 10^4, 10^5 (each cell's host seconds,
+   host RSS peak and device peak; N = 10^3's walls and costs equal to the
+   CPU's); ``compression_composition --size 138357544`` (VGG-16, 8
+   clients, 4.4 GB of gradients: identity equal to numpy's left fold bit
+   for bit, each codec's wire MB, billed GB-s, ``codec_error``, modeled and
+   host wall); ``elastic_reshard``; ``serve_sharded`` for every registered
+   arch (``norms_per_decode_step`` rmsnorm launches a step); and
+   ``train_federated_lm`` for two rounds of full-width ``tinyllama-1.1b``
+   (phase 7's settings and checks). Every kernel's launches are counted
+   from 0 over the phase (the kernels line's ``examples``) and must grow.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -1159,13 +1177,33 @@ def phase_lm_path(fs, sgd, rn, federated_lm, cfg):
                 "rmsnorm": rn.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = LM_RUN["rounds"] * LM_RUN["clients"] * LM_RUN["local_steps"]
+    if checked != list(range(LM_RUN["rounds"])):
+        fail(f"the fold was checked in rounds {checked}")
+    losses, means = check_lm_run(out, launches)
+    recs = out["rounds"]
+    walls = {"client_s": [w for r in recs for w in r["client_walls_s"]],
+             "agg_s": [r["agg_wall_s"] for r in recs]}
+    print(f"[7] federated {cfg.name}: {steps} local steps, losses {losses}, "
+          f"mean {means}; launches {launches}; each round's mean == plain "
+          f"fold; client walls {', '.join(f'{w:.3f}' for w in walls['client_s'])} "
+          f"s, aggregation walls {', '.join(f'{w:.3f}' for w in walls['agg_s'])}"
+          f" s; peak device memory {peak_gb:.2f} GB (reckoned "
+          f"~{RECKONED_PEAK_GB:.0f} GB)")
+    return out["params"], launches, means, walls, peak_gb
+
+
+def check_lm_run(out, launches) -> tuple:
+    """What a federated_lm run of ``LM_RUN`` at full width must show: 12
+    fused-SGD and 45 rmsnorm launches a local step, a fold a round, finite
+    losses whose mean falls below the first round's, finite parameters.
+    Returns the client losses and their means a round."""
+    import torch
+    steps = LM_RUN["rounds"] * LM_RUN["clients"] * LM_RUN["local_steps"]
     expect = {"fused_sgd": 12 * steps, "rmsnorm": NORMS_PER_FORWARD * steps}
     if {k: launches[k] for k in expect} != expect \
             or launches["fedavg_stream"] < LM_RUN["rounds"]:
         fail(f"launches {launches}, expected {expect} and at least one fold "
              f"a round")
-    if checked != list(range(LM_RUN["rounds"])):
-        fail(f"the fold was checked in rounds {checked}")
     recs = out["rounds"]
     losses = [r["client_losses"] for r in recs]
     if not all(math.isfinite(x) for row in losses for x in row):
@@ -1176,15 +1214,7 @@ def phase_lm_path(fs, sgd, rn, federated_lm, cfg):
              f"{means}")
     if not all(bool(torch.isfinite(p).all()) for p in out["params"].values()):
         fail("the trained parameters are not finite")
-    walls = {"client_s": [w for r in recs for w in r["client_walls_s"]],
-             "agg_s": [r["agg_wall_s"] for r in recs]}
-    print(f"[7] federated {cfg.name}: {steps} local steps, losses {losses}, "
-          f"mean {means}; launches {launches}; each round's mean == plain "
-          f"fold; client walls {', '.join(f'{w:.3f}' for w in walls['client_s'])} "
-          f"s, aggregation walls {', '.join(f'{w:.3f}' for w in walls['agg_s'])}"
-          f" s; peak device memory {peak_gb:.2f} GB (reckoned "
-          f"~{RECKONED_PEAK_GB:.0f} GB)")
-    return out["params"], launches, means, walls, peak_gb
+    return losses, means
 
 
 def phase_lm_timings(sgd, rn, layers, cfg, params, grads, peak):
@@ -3722,6 +3752,243 @@ def _split_line(tpf) -> dict:
                      for k, r in rows.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the examples, through their own entry points
+# ---------------------------------------------------------------------------
+
+EX_QUICKSTART_FAST = ["--schedule", "pipelined", "--readahead-k", "4",
+                      "--codec", "qsgd8"]
+EX_FAULTY_ROBUST = ["--staleness-policy", "polynomial", "--hedge", "2"]
+EX_VGG16_SIZE = "138357544"      # VGG-16's parameters: 553 MB a client
+EX_SERVE_STEPS = 8 + 24 - 1      # serve_sharded's prompt_len + new_tokens - 1
+EX_KERNELS = ("fedavg_stream", "quantize", "dequantize", "topk_sparsify",
+              "fused_sgd", "rmsnorm")
+
+
+def same_output(label, got, want, path="") -> None:
+    """Two examples' returned dicts alike in every key: arrays of the same
+    dtype, shape and bits, numbers exactly."""
+    import numpy as np
+    where = f"{label}{path}"
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            fail(f"{where}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            same_output(label, got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, np.ndarray):
+        if got.dtype != want.dtype or got.shape != want.shape \
+                or got.tobytes() != want.tobytes():
+            fail(f"{where}: the arrays differ (card against the CPU)")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            fail(f"{where}: {len(got)} items != {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            same_output(label, a, b, f"{path}[{i}]")
+    elif got != want and not (isinstance(want, float) and math.isnan(want)
+                              and math.isnan(got)):
+        fail(f"{where}: {got!r} != {want!r}")
+
+
+@contextlib.contextmanager
+def timed_sessions(module, FederatedSession, walls: list, seen: list):
+    """``module.FederatedSession`` swapped for a subclass whose rounds take
+    the host clock around work that ends in a device synchronisation (in
+    ``walls``), the client gradients of the first kept in ``seen``."""
+    import torch
+
+    class Timed(FederatedSession):
+        def round(self, client_grads=None, **kw):
+            if client_grads is not None and not seen:
+                seen.extend(client_grads)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = super().round(client_grads, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return r
+
+    module.FederatedSession = Timed
+    try:
+        yield
+    finally:
+        module.FederatedSession = FederatedSession
+
+
+def kernel_counts(fs, q, tk, sgd, rn) -> dict:
+    return {"fedavg_stream": fs.LAUNCHES, **codec_launches(q, tk),
+            "fused_sgd": sgd.LAUNCHES, "rmsnorm": rn.LAUNCHES}
+
+
+def phase_examples(examples, fs, q, tk, sgd, rn, models, get_arch,
+                   FederatedSession, card):
+    """The reference's seven examples through the port's entry points on
+    the card, their self-checks live: quickstart (plain and pipelined
+    qsgd8), faulty_round (plain and stale/hedged) and
+    compression_composition at its defaults equal to a CPU session's in
+    every printed value, bit for bit; million_clients at N = 10^3, 10^4,
+    10^5 (N = 10^3 equal to the CPU's); compression_composition at VGG-16
+    width, identity equal to numpy's left fold; elastic_reshard;
+    serve_sharded for every registered arch (the rmsnorm launches of each
+    step equal to ``norms_per_decode_step``); train_federated_lm for 2
+    rounds of full-width tinyllama-1.1b. Every kernel's launches are
+    counted from 0 over the phase and each must grow."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import arch_ids
+    (quickstart, faulty_round, million_clients, compression_composition,
+     elastic_reshard, serve_sharded, train_federated_lm) = examples
+    out, per_example = {}, {}
+    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = tk.LAUNCHES = 0
+    q.QUANTIZE_LAUNCHES = q.DEQUANTIZE_LAUNCHES = 0   # the path starts here
+
+    def run(label, fn):
+        before = kernel_counts(fs, q, tk, sgd, rn)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        after = kernel_counts(fs, q, tk, sgd, rn)
+        per_example[label] = {k: after[k] - before[k] for k in after
+                              if after[k] != before[k]}
+        per_example[label]["seconds"] = time.perf_counter() - t0
+        return got
+
+    for label, module, extra in (
+            ("quickstart", quickstart, []),
+            ("quickstart qsgd8", quickstart, EX_QUICKSTART_FAST),
+            ("faulty_round", faulty_round, []),
+            ("faulty_round stale+hedge", faulty_round, EX_FAULTY_ROBUST),
+            ("compression_composition", compression_composition, [])):
+        got = run(label, lambda: module.main(extra + ["--device", "cuda"]))
+        same_output(label, got, module.main(extra + ["--device", "cpu"]))
+        print(f"[19] {label}: the card's printed values == the CPU's, "
+              f"bit for bit; launches {per_example[label]}")
+    if per_example["quickstart"].get("fedavg_stream", 0) == 0 \
+            or per_example["quickstart qsgd8"].get("quantize", 0) == 0 \
+            or per_example["compression_composition"].get(
+                "topk_sparsify", 0) == 0:
+        fail(f"an example did not reach its kernels: {per_example}")
+
+    # million_clients: each cell's host RSS and device peaks, then N = 10^3
+    # on the CPU
+    peak, real_round = {}, million_clients.one_round
+
+    def measured_round(topology, n, device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with _RssPeak() as rss:
+            got = real_round(topology, n, device)
+        peak[n, topology] = (
+            rss.peak / 2**20, (rss.peak - rss.start) / 2**20,
+            (torch.cuda.max_memory_allocated() - base) / 2**20)
+        return got
+
+    million_clients.one_round = measured_round
+    try:
+        mc = run("million_clients",
+                 lambda: million_clients.main(["--device", "cuda"]))
+    finally:
+        million_clients.one_round = real_round
+    small, cohorts = million_clients.COHORTS[0], million_clients.COHORTS
+    million_clients.COHORTS = (small,)
+    try:
+        mc_cpu = million_clients.main(["--device", "cpu"])
+    finally:
+        million_clients.COHORTS = cohorts
+    for topology in million_clients.TOPOLOGIES:
+        a, b = mc["cells"][small, topology], mc_cpu["cells"][small, topology]
+        same_output(f"million_clients N={small} {topology}",
+                    (a["wall_clock_s"], a["cost"]),
+                    (b["wall_clock_s"], b["cost"]))
+    if per_example["million_clients"].get("fedavg_stream", 0) == 0:
+        fail("million_clients launched no fold")
+    out["million_clients"] = {
+        f"{n}/{t}": {"host_s": c["host_s"], "host_rss_peak_mb": peak[n, t][0],
+                     "host_rss_rise_mb": peak[n, t][1],
+                     "device_peak_mb": peak[n, t][2],
+                     "modeled_wall_s": c["wall_clock_s"], "cost": c["cost"]}
+        for (n, t), c in mc["cells"].items()}
+    for key, c in out["million_clients"].items():
+        print(f"     million_clients {key}: host {c['host_s']:.3f} s, host "
+              f"RSS peak {c['host_rss_peak_mb']:.0f} MB (+"
+              f"{c['host_rss_rise_mb']:.0f}), device peak "
+              f"{c['device_peak_mb']:.2f} MB")
+    print(f"     million_clients N={small}: walls and costs == the CPU's")
+
+    # compression_composition at VGG-16 width
+    walls, seen = [], []
+    with timed_sessions(compression_composition, FederatedSession, walls,
+                        seen):
+        cc = run("compression_composition VGG-16", lambda:
+                 compression_composition.main(
+                     ["--size", EX_VGG16_SIZE, "--device", "cuda"]))
+    acc = seen[0].copy()
+    for g in seen[1:]:
+        acc += g
+    acc /= len(seen)
+    if not np.array_equal(cc["codecs"]["identity"]["avg_flat"], acc):
+        fail("compression_composition at VGG-16 width: identity != numpy's "
+             "left fold")
+    out["compression_vgg16"] = {
+        codec: {"wire_mb": row["wire_mb"], "billed_gb_s": row["billed_gb_s"],
+                "codec_error": row["codec_error"],
+                "modeled_wall_s": row["wall_clock_s"], "host_wall_s": wall}
+        for (codec, row), wall in zip(cc["codecs"].items(), walls)}
+    del seen, acc, cc
+    for codec, row in out["compression_vgg16"].items():
+        print(f"     VGG-16 {codec}: wire {row['wire_mb']:.2f} MB, billed "
+              f"{row['billed_gb_s']:.3f} GB-s, codec_error "
+              f"{row['codec_error']:.3e}, modeled wall "
+              f"{row['modeled_wall_s']:.3f} s, host wall "
+              f"{row['host_wall_s']:.3f} s")
+    print("     VGG-16 identity == numpy's left fold, bit for bit")
+    torch.cuda.empty_cache()
+
+    er = run("elastic_reshard",
+             lambda: elastic_reshard.main(["--device", "cuda"]))
+    print(f"[19] elastic_reshard: restored bit for bit, shards "
+          f"{er['resumed_shard_sizes']}")
+
+    out["serve_sharded"] = {}
+    for arch in arch_ids():
+        cfg = get_arch(arch).smoke
+        got = run(f"serve_sharded {arch}", lambda: serve_sharded.main(
+            ["--arch", arch, "--device", "cuda"]))
+        launches = per_example[f"serve_sharded {arch}"].get("rmsnorm", 0)
+        encoder = 2 * cfg.encoder_layers + 1 if models.is_encdec(cfg) else 0
+        norms = models.norms_per_decode_step(cfg)
+        if launches != norms * EX_SERVE_STEPS + encoder \
+                or got["generated"].shape != (4, 24):
+            fail(f"serve_sharded {arch}: {launches} rmsnorm launches "
+                 f"(expected {norms} x {EX_SERVE_STEPS} + {encoder}), "
+                 f"generated {got['generated'].shape}")
+        out["serve_sharded"][arch] = {
+            "tokens_per_s": got["tokens_per_s"],
+            "generated": list(got["generated"].shape),
+            "rmsnorm_per_step": norms}
+        print(f"     serve_sharded {arch}: {got['tokens_per_s']:.1f} tok/s, "
+              f"generated {got['generated'].shape}, {norms} rmsnorm "
+              f"launches a step")
+    torch.cuda.empty_cache()
+
+    lm_args = [f"--{k}={v}" for k, v in LM_RUN.items()]
+    lm = run("train_federated_lm",
+             lambda: train_federated_lm.main(lm_args + ["--device", "cuda"]))
+    losses, means = check_lm_run(lm, {
+        k: per_example["train_federated_lm"].get(k, 0) for k in EX_KERNELS})
+    del lm
+    torch.cuda.empty_cache()
+    print(f"[19] train_federated_lm {LM_ARCH}: losses {losses}, mean "
+          f"{means}; launches {per_example['train_federated_lm']}")
+
+    launches = kernel_counts(fs, q, tk, sgd, rn)
+    if any(launches[k] == 0 for k in EX_KERNELS):
+        fail(f"a kernel was not launched on the examples' path: {launches}")
+    out.update(launches=launches, per_example=per_example, card=card)
+    print(f"[19] examples: launches {launches}")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -3749,6 +4016,10 @@ def main() -> None:
     from repro_torch.core.cost_model import UploadModel
     from repro_torch.serverless.faults import FaultModel
     from repro_torch.serverless.population import ClientPopulation
+    from repro_torch.examples import (compression_composition,
+                                      elastic_reshard, faulty_round,
+                                      million_clients, quickstart,
+                                      serve_sharded, train_federated_lm)
 
     clock = [("start", time.perf_counter())]
     phase_build(build)
@@ -3848,6 +4119,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     tpf = phase_tp_families(serve, models, rn, get_arch, peaks(name), card)
     clock.append(("18 TP families", time.perf_counter()))
+    # phase 19: the examples
+    torch.cuda.empty_cache()
+    ex = phase_examples(
+        (quickstart, faulty_round, million_clients, compression_composition,
+         elastic_reshard, serve_sharded, train_federated_lm),
+        fs, q, tk, sgd, rn, models, get_arch, FederatedSession, card)
+    clock.append(("19 examples", time.perf_counter()))
     phase_s = {label: t - clock[i][1]
                for i, (label, t) in enumerate(clock[1:])}
     print(f"phase seconds ({card}): " + ", ".join(
@@ -3878,7 +4156,7 @@ def main() -> None:
                                    "models": families},
                       "long_context": long_ctx, "federated_cnn": fl_cnn,
                       "trainer": trainer, "tp": tp, "tp_families": tpf,
-                      "phase_seconds": phase_s,
+                      "examples": ex, "phase_seconds": phase_s,
                       "card": card}))
     kernels = [{
         "name": "fedavg_stream", "route": "cuda",
@@ -3965,6 +4243,9 @@ def main() -> None:
                         "per_step": {a: r["rmsnorm_per_step"] for a, r in
                                      tpf["models"].items()}},
         "split": _split_line(tpf)})
+    for row in kernels:                  # phase 19's launches
+        row["examples"] = ex["launches"][row["name"]]
+        row["launches"] += row["examples"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -86,8 +86,13 @@ def local_sgd_update(loss_fn: Callable, params: Mapping[str, torch.Tensor],
     with torch.no_grad():
         if momentum:
             if velocity is None:
+                # detlint: allow[ORD001] a per-key map of zero buffers;
+                # no arithmetic runs over the keys
                 velocity = {k: torch.zeros_like(p, dtype=torch.float32)
                             for k, p in params.items()}
+            # detlint: allow[ORD001] grads follow leaves = params.values(),
+            # so zip pairs each key with its own gradient; each leaf's
+            # update is independent of the others
             for (k, p), g in zip(params.items(), grads):
                 ops.sgd_momentum_update(p, g.contiguous(), velocity[k], lr,
                                         momentum)
@@ -109,4 +114,6 @@ def apply_delta(params: Mapping[str, torch.Tensor],
                 delta: Mapping[str, torch.Tensor], scale: float = 1.0
                 ) -> dict:
     with torch.no_grad():
+        # detlint: allow[ORD001] a per-key map: each leaf's update is
+        # independent, so the order never reaches the arithmetic
         return {k: p - delta[k] * scale for k, p in params.items()}

@@ -18,9 +18,10 @@ import pathlib
 import shutil
 import subprocess
 import threading
-import time
 
 import torch
+
+from repro_torch.launch.hostenv import host_timer
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -76,9 +77,9 @@ def load(name: str) -> ctypes.PyDLL:
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
-            t0 = time.perf_counter()
+            t0 = host_timer()
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            secs = time.perf_counter() - t0
+            secs = host_timer() - t0
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {name}.cu "
                                    f"(exit {proc.returncode}):\n"

@@ -279,6 +279,7 @@ def _table(nodes, carries, divisors, acc: str, finalize: bool,
     """The kernel's node table (layout in ``csrc/fedavg_stream.cu``) as a
     host int64 array, the allocated outputs, and the longest node."""
     n = len(nodes)
+    # detlint: allow[ORD001] an integer count of table slots
     n_slots = sum(_rows(inputs) for inputs, _ in nodes)
     table = np.zeros(n * (_META + 1) + 2 * n_slots, np.int64)
     meta = table[:n * _META].reshape(n, _META)
@@ -320,6 +321,7 @@ def _launch(nodes, carries, divisors, acc: str, finalize: bool,
     launch = _launcher()
     table, outs, max_len = _table(nodes, carries, divisors, acc, finalize,
                                   device)
+    # detlint: allow[ORD001] an integer count of table slots
     n, n_slots = len(nodes), sum(_rows(inputs) for inputs, _ in nodes)
     if max_len == 0:
         return outs

@@ -55,7 +55,6 @@ import dataclasses
 import json
 import math
 import os
-import time
 import traceback
 
 import torch
@@ -69,6 +68,7 @@ from repro_torch.configs import ASSIGNED, get_arch
 from repro_torch.launch import partitioning as parts
 from repro_torch.launch import serve as S
 from repro_torch.launch import train as T
+from repro_torch.launch.hostenv import host_timer
 from repro_torch.models import encdec, meshctx
 from repro_torch.models import registry as models
 from repro_torch.models.transformer import map_tree
@@ -237,7 +237,7 @@ def analyze_cell(arch_id: str, shape: ShapeConfig, mesh, mesh_name: str,
     """Build and measure one (arch, shape, mesh) cell for rank 0 of
     ``mesh`` (a ``DeviceMesh`` over a fake group: :func:`fake_mesh`)."""
     cfg = get_arch(arch_id).model
-    t0 = time.perf_counter()
+    t0 = host_timer()
     full = measure(cfg, shape, mesh, plan) if mode == "unroll" else None
     if mode == "scan2":
         knobs = _depth_knobs(cfg)
@@ -272,7 +272,7 @@ def analyze_cell(arch_id: str, shape: ShapeConfig, mesh, mesh_name: str,
         "arch": arch_id, "shape": shape.name, "mesh": mesh_name,
         "mesh_shape": list(parts.axis_sizes(mesh).values()),
         "n_chips": n_chips, "plan": dataclasses.asdict(plan), "mode": mode,
-        "kind": shape.kind, "build_s": time.perf_counter() - t0,
+        "kind": shape.kind, "build_s": host_timer() - t0,
         "flops_per_device": full["flops"],
         "flops_counts": "matrix products only (torch.utils.flop_counter: "
                         "mm, bmm, einsum, conv, attention), forward and "
@@ -331,7 +331,7 @@ def main(argv=None) -> int:
     plan = ShardingPlan(grad_sharding=args.plan)
     os.makedirs(args.out, exist_ok=True)
     summary, n_ok, n_skip, n_fail = [], 0, 0, 0
-    t0 = time.perf_counter()
+    t0 = host_timer()
     try:
         for mesh_name, mc in MESHES[args.mesh]:
             mesh = fake_mesh(mc)
@@ -381,7 +381,7 @@ def main(argv=None) -> int:
               "w") as f:
         json.dump(summary, f, indent=1)
     print(f"\n[dryrun] ok={n_ok} skip={n_skip} fail={n_fail} "
-          f"({time.perf_counter() - t0:.1f}s)")
+          f"({host_timer() - t0:.1f}s)")
     return 1 if n_fail else 0
 
 

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -40,6 +39,7 @@ from repro_torch.core.cost_model import UploadModel
 from repro_torch.core.fedavg import apply_delta, local_sgd_update, model_delta
 from repro_torch.core.sharding import flatten, leaf_order, unflatten
 from repro_torch.data import SyntheticLM
+from repro_torch.launch.hostenv import host_timer
 from repro_torch.models import registry as models
 
 
@@ -100,13 +100,13 @@ def run(cfg: ModelConfig, *, rounds: int = 10, clients: int = 4,
     print(f"federated {cfg.name} ({models.param_count(cfg):,} params), "
           f"N={clients} clients, topology={topology} M={shards}, "
           f"schedule={schedule or 'barrier'}, device={dev}")
-    t_start = time.perf_counter()
+    t_start = host_timer()
     records = []
     for rnd in range(rounds):
         flats, losses, client_walls = [], [], []
         spec = None
         for c in range(clients):
-            t0 = time.perf_counter()
+            t0 = host_timer()
             local = {k: v.detach().clone() for k, v in params.items()}
             vel, loss = None, None
             for s in range(local_steps):
@@ -119,11 +119,11 @@ def run(cfg: ModelConfig, *, rounds: int = 10, clients: int = 4,
             del local, vel
             flats.append(flat)
             _sync(dev)
-            client_walls.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
+            client_walls.append(host_timer() - t0)
+        t0 = host_timer()
         res = session.round(flats, rnd=rnd)
         _sync(dev)
-        agg_wall = time.perf_counter() - t0
+        agg_wall = host_timer() - t0
         if on_round is not None:
             on_round(rnd, res, flats)
         del flats
@@ -146,7 +146,7 @@ def run(cfg: ModelConfig, *, rounds: int = 10, clients: int = 4,
     print(f"session wall (modeled): {session.session_wall_s:.2f}s  "
           f"vs sum-of-round-walls {session.sum_round_walls_s:.2f}s")
     print(f"total lambda cost: ${session.lambda_cost():.6f}  "
-          f"({time.perf_counter() - t_start:.1f}s real)")
+          f"({host_timer() - t_start:.1f}s real)")
     return {"params": params, "rounds": records, "session": session}
 
 
@@ -164,7 +164,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--topology", default="gradssharding",
-                    choices=["gradssharding", "lambda_fl", "lifl"])
+                    choices=["gradssharding", "lambda_fl", "lifl",
+                             "sharded_tree"])
     ap.add_argument("--partition", default="uniform",
                     choices=["uniform", "balanced", "layer_contiguous"])
     ap.add_argument("--schedule", default=None,

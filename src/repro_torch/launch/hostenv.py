@@ -33,6 +33,8 @@ def host_timer() -> float:
     Event-plane code must never call this — simulated time comes from
     the event heap (``serverless.event_sim``).
     """
+    # detlint: allow[DET002] the one sanctioned host clock: launchers
+    # time real builds/steps; event planes use the event heap
     return time.perf_counter()
 
 
@@ -68,6 +70,7 @@ def maybe_preload_tcmalloc() -> bool:
     preload = knobs.env_raw("LD_PRELOAD")
     if "tcmalloc" in preload:
         return False
+    # detlint: allow[ENV001] snapshot handed to execve, not a knob read
     env = dict(os.environ)
     env["LD_PRELOAD"] = f"{preload}:{lib}" if preload else lib
     # silence tcmalloc's large-alloc warnings for multi-GB fold buffers

@@ -34,9 +34,10 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_import_leaves_no_jax_or_reference_in_sys_modules():
-    """Importing the port's modules, the dry run's included, loads neither
-    JAX nor the reference, nor torch's internal fake process group (the
-    dry run imports it when it builds a mesh)."""
+    """Importing the port's modules, the dry run's, the linter's and the
+    examples' included, loads neither JAX nor the reference, nor torch's
+    internal fake process group (the dry run imports it when it builds a
+    mesh)."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.smoke\n"
@@ -61,6 +62,14 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
         "import repro_torch.core.device_agg, repro_torch.launch.mesh\n"
         "import repro_torch.launch.partitioning, repro_torch.models.meshctx\n"
         "import repro_torch.launch.dryrun\n"
+        "import repro_torch.detlint, repro_torch.detlint.cli\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.faulty_round\n"
+        "import repro_torch.examples.million_clients\n"
+        "import repro_torch.examples.compression_composition\n"
+        "import repro_torch.examples.elastic_reshard\n"
+        "import repro_torch.examples.serve_sharded\n"
+        "import repro_torch.examples.train_federated_lm\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
         "             or m.endswith('distributed.fake_pg'))\n"
