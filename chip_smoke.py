@@ -221,7 +221,24 @@ Phases, each fatal on failure:
    arch (``norms_per_decode_step`` rmsnorm launches a step); and
    ``train_federated_lm`` for two rounds of full-width ``tinyllama-1.1b``
    (phase 7's settings and checks). Every kernel's launches are counted
-   from 0 over the phase (the kernels line's ``examples``) and must grow.
+   from 0 over the phase (the kernels line's ``examples``) and must grow;
+20. Mamba-1's associative scan (``models.ssm._assoc_scan_chunk``) at
+   ``falcon-mamba-7b``'s width (d_model 4,096, d_inner 8,192, d_state 16,
+   chunk 256) and train_4k's length: (a) one block, forward and backward,
+   at (1, 4,096, 4,096), f32 compute, its output and every gradient
+   within 1e-4 of max |want| of an f64 loop over every step on the card;
+   host wall, device busy time, kernels and peak device memory of the
+   block on the scan and on the per-step loop it replaced (here only);
+   the scan's bits on the card equal to the CPU's at C = 7 and 256; (b)
+   one ``none`` step of ``jit_train_step`` on a one-rank NCCL group and a
+   (1, 1) mesh at batch 1 x 4,096, bf16 compute, cut to 8 of 64 layers
+   (at full depth the f32 parameters, gradients and AdamW moments alone
+   hold ~116 GB): the rmsnorm kernel at the step's rows against its plain
+   version, finite losses, 2 x 8 + 1 rmsnorm launches a step (remat
+   recomputes each pre-norm), the step's host wall (median of 3), peak
+   device memory, a profiled step's busy share; (c) the full 64-layer
+   forward at batch 1 x 4,096 with bf16 weights: host walls, peak device
+   memory, 65 rmsnorm launches a forward.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -1334,7 +1351,13 @@ def phase_lm_timings(sgd, rn, layers, cfg, params, grads, peak):
 def device_busy_ms(kernels) -> float:
     """The union of the kernels' device spans, in ms: the time the device
     was busy (kernels that overlap count once)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    return busy_ms_of_spans([(e.time_range.start, e.time_range.end)
+                             for e in kernels])
+
+
+def busy_ms_of_spans(spans) -> float:
+    """The union of (start, end) spans in µs, in ms."""
+    spans = sorted(spans)
     busy_us, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -1374,6 +1397,38 @@ def profiled_step(step):
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     return kernels, kept.get("ops", ()), wall_ms
+
+
+def kernel_spans(step):
+    """One call of ``step`` under ``torch.profiler`` (CUDA activity only)
+    after a warm-up cycle: its device kernels' (start, end) spans in µs,
+    read from the raw kineto events (user annotations left out; no
+    operator tree is built, so a call of ~65,000 kernels is read in
+    seconds), and the call's host wall in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    kept = {}
+
+    def ready(p):
+        kept["spans"] = [(e.start_ns() / 1e3,
+                          (e.start_ns() + e.duration_ns()) / 1e3)
+                         for e in p.profiler.kineto_results.events()
+                         if e.device_type() == DeviceType.CUDA
+                         and not e.is_user_annotation()]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            on_trace_ready=ready,
+            schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                             active=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    return kept.get("spans", []), wall_ms
 
 
 def phase_lm_profile(models, data, cfg, params):
@@ -2858,22 +2913,24 @@ def host_mesh_vs_streaming(fs, FederatedSession, grads, host_mesh: int,
     return out
 
 
-def check_trainer_norm(rn, layers, cfg, params, batch) -> float:
-    """The rmsnorm kernel at the trainer's rows (layer 0's ln1 input,
+def check_trainer_norm(rn, layers, cfg, params, batch, gamma_key="layers.ln1",
+                       where: str = "16") -> float:
+    """The rmsnorm kernel at the trainer's rows (layer 0's first norm input,
     batch × seq rows in the compute dtype, γ as stored) against its plain
     version: within one bf16 ulp (f32: rtol 1e-5, atol 1e-6), rstd within
-    1e-5; its max abs err."""
+    1e-5; its max abs err. ``gamma_key`` names the stacked γ of that norm,
+    ``where`` the phase."""
     import torch
     x = layers.embed_tokens(params["embed"], batch["tokens"],
                             cfg.compute_dtype).reshape(-1, cfg.d_model)
-    gamma = params["layers.ln1"][0]
+    gamma = params[gamma_key][0]
     out, rstd = rn.rmsnorm(x, gamma, cfg.norm_eps)
     want, want_rstd = rn.rmsnorm_plain(x, gamma, cfg.norm_eps)
     torch.cuda.synchronize()
     label = f"{tuple(x.shape)} {x.dtype}, gamma {gamma.dtype}"
     if out.dtype != x.dtype or out.shape != x.shape or not bool(
             torch.isfinite(want).all() and torch.isfinite(out).all()):
-        fail(f"16: rmsnorm at the trainer's rows {label}: a non-finite "
+        fail(f"{where}: rmsnorm at the trainer's rows {label}: a non-finite "
              f"value or {out.dtype} {tuple(out.shape)}")
     diff = (out.float() - want.float()).abs()
     if x.dtype == torch.float32:
@@ -2884,9 +2941,9 @@ def check_trainer_norm(rn, layers, cfg, params, batch) -> float:
                       <= 1e-5 * want_rstd.abs()).all())
     err = float(diff.max())
     if not ok:
-        fail(f"16: rmsnorm at the trainer's rows {label} != plain beyond "
+        fail(f"{where}: rmsnorm at the trainer's rows {label} != plain beyond "
              f"the tolerance (max abs err {err})")
-    print(f"[16] rmsnorm at the trainer's rows {label}: == plain within "
+    print(f"[{where}] rmsnorm at the trainer's rows {label}: == plain within "
           f"the tolerance (max abs err {err:.3g})")
     return err
 
@@ -3989,6 +4046,332 @@ def phase_examples(examples, fs, q, tk, sgd, rn, models, get_arch,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: Mamba-1's associative scan at training length
+# ---------------------------------------------------------------------------
+
+SCAN_ARCH = "falcon-mamba-7b"
+SCAN_SEQ = 4096                  # train_4k's sequence length
+# 20 (b) cuts the depth: at 64 layers the f32 parameters, gradients and
+# AdamW's two moments alone hold ~116 GB
+SCAN_TRAIN_LAYERS = 8
+SCAN_TIMED_STEPS = 3
+# 20 (a): the f32 block against the f64 loop, max |got - want| within
+# these shares of max |want| (f32 rounding through products of 4,096 and
+# 8,192 terms, `exp` and 256-step scans; every weight's gradient sums over
+# 4,096 tokens)
+SCAN_OUT_TOL, SCAN_GRAD_TOL = 1e-4, 1e-4
+# the card's _assoc_scan_chunk against the CPU's, bit for bit: (B, C, di,
+# ds) at a 7-token prompt's chunk and the registered chunk
+SCAN_BITS_SHAPES = ((1, 7, 64, 16), (1, 256, 64, 16))
+
+
+def loop_mamba1_ssm(dt, bmat, cmat, xc, a, h0, chunk: int):
+    """Mamba-1's chunked recurrence as a loop over each chunk's steps, with
+    ``ssm.mamba1_ssm``'s signature: the form the associative scan
+    replaced, kept here only as 20 (a)'s reading before it."""
+    import torch
+    s = dt.shape[1]
+    chunk = min(chunk, s)
+    dt, bmat, cmat, xc = (t.float() for t in (dt, bmat, cmat, xc))
+    h, ys = h0, []
+    for lo in range(0, s, chunk):
+        sl = slice(lo, lo + chunk)
+        da = torch.exp(dt[:, sl, :, None] * a)
+        db = (dt[:, sl] * xc[:, sl])[..., None] * bmat[:, sl, None, :]
+        hs = []
+        for i in range(da.shape[1]):
+            h = da[:, i] * h + db[:, i]
+            hs.append(h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1),
+                               cmat[:, sl]))
+    return torch.cat(ys, dim=1), h
+
+
+def mamba1_block_f64(p, x, cfg):
+    """20 (a)'s reference: the Mamba-1 block in f64 from the same weights,
+    its recurrence a loop over every step of the sequence (no chunks)."""
+    import torch
+    import torch.nn.functional as F
+    r, ds = math.ceil(cfg.d_model / 16), cfg.ssm.d_state
+    k, c = p["conv_w"].shape
+    x_in, z = x @ p["in_x"], x @ p["in_z"]
+    conv = F.conv1d(F.pad(x_in.transpose(1, 2), (k - 1, 0)),
+                    p["conv_w"].T.reshape(c, 1, k), groups=c)
+    xc = F.silu(conv.transpose(1, 2) + p["conv_b"])
+    dt_raw, bm, cm = torch.split(xc @ p["x_proj"], [r, ds, ds], dim=-1)
+    dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])
+    da = torch.exp(dt[..., None] * -torch.exp(p["a_log"]))
+    db = (dt * xc)[..., None] * bm[:, :, None, :]
+    h, hs = torch.zeros_like(da[:, 0]), []
+    for da_t, db_t in zip(da.unbind(1), db.unbind(1)):
+        h = da_t * h + db_t
+        hs.append(h)
+    y = torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), cm)
+    return ((y + xc * p["d_skip"]) * F.silu(z)) @ p["out_proj"]
+
+
+def _block_grads(block, p, x, w):
+    """``block(p, x)`` and the gradients of sum(out · w) by x and by each
+    leaf of ``p``, in that order."""
+    import torch
+    out = block(p, x)
+    grads = torch.autograd.grad((out * w).sum(), [x, *p.values()])
+    return out.detach(), grads
+
+
+def _scan_reading(fn) -> dict:
+    """One call of ``fn`` (its result dropped): host wall and peak device
+    memory; then one call under the profiler after a warm-up cycle:
+    device busy time and kernels."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del res
+    kernels, prof_wall_ms = kernel_spans(fn)
+    busy = busy_ms_of_spans(kernels) if kernels else None
+    return {"host_wall_ms": wall_ms, "peak_memory_gb": peak / 1e9,
+            "peak_above_held_gb": (peak - held) / 1e9,
+            "device_busy_ms": busy, "kernels": len(kernels),
+            "profiled_wall_ms": prof_wall_ms}
+
+
+def _scan_bits(ssm) -> list:
+    """The card's ``_assoc_scan_chunk`` against the CPU's on the same
+    inputs, bit for bit (``*`` and ``+`` are separate kernels on both)."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 20)
+    shapes = []
+    for shape in SCAN_BITS_SHAPES:
+        da = torch.exp(-0.2 * torch.rand(shape, generator=gen))
+        db = torch.randn(shape, generator=gen)
+        h0 = torch.randn(shape[:1] + shape[2:], generator=gen)
+        want = ssm._assoc_scan_chunk(da, db, h0)
+        got = ssm._assoc_scan_chunk(da.cuda(), db.cuda(), h0.cuda())
+        if not all(bits_equal(g.cpu(), w) for g, w in zip(got, want)):
+            fail(f"20: _assoc_scan_chunk at {shape} on the card != the "
+                 f"CPU's bits")
+        shapes.append(list(shape))
+    return shapes
+
+
+def _scan_block(ssm, get_arch, card) -> dict:
+    """20 (a): one falcon-mamba-7b block, forward and backward, at (1,
+    4,096, 4,096), f32 compute: its output and every gradient against the
+    f64 step loop, then the scan's and the per-step loop's readings."""
+    import torch
+    cfg = dataclasses.replace(get_arch(SCAN_ARCH).model,
+                              compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    p = ssm.mamba1_init(gen, cfg, torch.float32)
+    x = torch.randn((1, SCAN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda")
+    w = torch.randn((1, SCAN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda")
+    p64 = {k: v.double().requires_grad_() for k, v in p.items()}
+    want, want_g = _block_grads(lambda q, v: mamba1_block_f64(q, v, cfg),
+                                p64, x.double().requires_grad_(), w.double())
+    del p64
+    torch.cuda.empty_cache()
+    p = {k: v.requires_grad_() for k, v in p.items()}
+    x.requires_grad_()
+    block = lambda q, v: ssm.mamba1_block(q, v, cfg)[0]
+    got, got_g = _block_grads(block, p, x, w)
+    scale = lambda t: float(t.abs().max())
+    errs = {"out": float((got.double() - want).abs().max()) / scale(want)}
+    for name, g, wg in zip(["x", *p], got_g, want_g):
+        errs[f"d{name}"] = float((g.double() - wg).abs().max()) / scale(wg)
+    del got, got_g, want, want_g
+    print(f"[20] falcon-mamba-7b block at (1, {SCAN_SEQ}, {cfg.d_model}), "
+          f"f32, against the f64 step loop: max |err| / max |want| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items()
+           if not v <= (SCAN_OUT_TOL if k == "out" else SCAN_GRAD_TOL)}
+    if bad:
+        fail(f"20: the block beyond {SCAN_OUT_TOL} (output) / "
+             f"{SCAN_GRAD_TOL} (gradients) of max |want|: {bad}")
+    run = lambda: _block_grads(block, p, x, w)
+    out = {"errors": errs, "scan": _scan_reading(run)}
+    scan_fn = ssm.mamba1_ssm
+    ssm.mamba1_ssm = loop_mamba1_ssm
+    try:
+        out["loop"] = _scan_reading(run)
+    finally:
+        ssm.mamba1_ssm = scan_fn
+    del p, x, w
+    torch.cuda.empty_cache()
+    out["bits_on_card"] = _scan_bits(ssm)
+    for name in ("scan", "loop"):
+        r = out[name]
+        busy = "not measured" if r["device_busy_ms"] is None else \
+            f"{r['device_busy_ms']:.1f} ms"
+        print(f"[20] block forward + backward, {name}: host wall "
+              f"{r['host_wall_ms']:.1f} ms, device busy {busy}, "
+              f"{r['kernels']} kernels, peak device memory "
+              f"{r['peak_memory_gb']:.2f} GB ({card})")
+    print(f"[20] _assoc_scan_chunk on the card == the CPU's bit for bit at "
+          f"{out['bits_on_card']}")
+    return out
+
+
+def _scan_train_step(T, models, rn, layers, get_arch, mesh, card) -> dict:
+    """20 (b): falcon-mamba-7b at full width cut to SCAN_TRAIN_LAYERS
+    layers, one ``none`` step of ``jit_train_step`` at batch 1 x 4,096,
+    bf16 compute, remat as registered: finite loss, rmsnorm launches
+    (each layer's pre-norm, again in its recompute, and the final norm),
+    the step's host wall (median of 3), peak device memory and a profiled
+    step's busy share."""
+    import torch
+    from repro_torch.config import ShapeConfig, ShardingPlan
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_arch(SCAN_ARCH).model,
+                              n_layers=SCAN_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    params = models.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab, (1, SCAN_SEQ + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    norm_err = check_trainer_norm(rn, layers, cfg, params, batch,
+                                  gamma_key="layers.ln", where="20")
+    shape = ShapeConfig("train_4k", seq_len=SCAN_SEQ, global_batch=1,
+                        kind="train")
+    opt = adamw(3e-4, grad_clip_norm=1.0)
+    plan = ShardingPlan(grad_sharding="none")
+    step = T.jit_train_step(cfg, shape, mesh, plan, opt)
+    p_in, state = T.place_state(cfg, mesh, plan, params, opt.init(params))
+    del params
+    norms = cfg.n_layers * (2 if cfg.remat else 1) + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rn.LAUNCHES = 0                      # the training path starts here
+    losses, walls = [], []
+    for _ in range(1 + SCAN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        p_in, state, m = step(p_in, state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(map(math.isfinite, losses)):
+        fail(f"20: a falcon-mamba-7b step gave a non-finite loss {losses}")
+    kernels, prof_wall = kernel_spans(lambda: step(p_in, state, batch))
+    launches = rn.LAUNCHES               # the steps above and two profiled
+    if launches != norms * (len(losses) + 2):
+        fail(f"20: {len(losses) + 2} steps launched rmsnorm {launches} "
+             f"times, expected {norms} a step")
+    busy = busy_ms_of_spans(kernels) if kernels else None
+    del p_in, state, batch, toks
+    torch.cuda.empty_cache()
+    out = {"n_layers": cfg.n_layers, "registered_layers":
+           get_arch(SCAN_ARCH).model.n_layers, "params":
+           models.param_count(cfg), "losses": losses,
+           "step_walls_ms": walls[1:], "first_step_wall_ms": walls[0],
+           "step_wall_ms": statistics.median(walls[1:]),
+           "peak_memory_gb": peak, "rmsnorm_per_step": norms,
+           "rmsnorm_launches": launches, "rmsnorm_max_abs_err": norm_err,
+           "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
+           "kernels": len(kernels),
+           "busy_share": None if busy is None else busy / prof_wall,
+           # the profiler slows the host: busy against the median step too
+           "busy_share_of_median_step": None if busy is None else
+           min(1.0, busy / statistics.median(walls[1:]))}
+    busy_txt = "profile: no device activity; not measured" if busy is None \
+        else (f"profiled step {prof_wall:.1f} ms, device busy {busy:.1f} ms"
+              f" ({100 * out['busy_share']:.1f}%; "
+              f"{100 * out['busy_share_of_median_step']:.1f}% of the median "
+              f"step), {len(kernels)} kernels")
+    print(f"[20] falcon-mamba-7b train step ({out['params']:,} parameters, "
+          f"cut to {cfg.n_layers} of {out['registered_layers']} layers), "
+          f"batch 1 x {SCAN_SEQ}, bf16: losses {losses}; {norms} rmsnorm "
+          f"launches a step; step host wall {out['step_wall_ms']:.1f} ms "
+          f"(median of {SCAN_TIMED_STEPS}; the first "
+          f"{walls[0]:.1f}), peak device memory {peak:.2f} GB; {busy_txt} "
+          f"({card})")
+    return out
+
+
+def _scan_prefill(models, rn, get_arch, card) -> dict:
+    """20 (c): falcon-mamba-7b's forward at full depth (64 layers, bf16
+    weights) at batch 1 x 4,096: host wall of two forwards after a
+    warm-up, peak device memory, rmsnorm launches."""
+    import torch
+    cfg = dataclasses.replace(get_arch(SCAN_ARCH).model, remat=False,
+                              param_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    params = models.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab, (1, SCAN_SEQ), generator=gen,
+                         device="cuda")
+    before, walls = rn.LAUNCHES, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits = models.forward(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if logits.shape != (1, SCAN_SEQ, cfg.vocab) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"20: the prefill's logits {tuple(logits.shape)} are not "
+                 f"finite or not (1, {SCAN_SEQ}, {cfg.vocab})")
+        del logits
+    launches = rn.LAUNCHES - before
+    norms = cfg.n_layers + 1
+    if launches != 3 * norms:
+        fail(f"20: three prefills launched rmsnorm {launches} times, "
+             f"expected {norms} a forward")
+    del params
+    torch.cuda.empty_cache()
+    out = {"n_layers": cfg.n_layers, "params": models.param_count(cfg),
+           "walls_ms": walls[1:], "first_wall_ms": walls[0],
+           "peak_memory_gb": peak, "rmsnorm_launches": launches}
+    print(f"[20] falcon-mamba-7b prefill, 64 layers, bf16 weights, batch 1 "
+          f"x {SCAN_SEQ}: host wall {walls[1]:.1f}, {walls[2]:.1f} ms (the "
+          f"first {walls[0]:.1f}), peak device memory {peak:.2f} GB; "
+          f"{norms} rmsnorm launches a forward ({card})")
+    return out
+
+
+def phase_scan(ssm, models, rn, layers, get_arch, card) -> dict:
+    """20: Mamba-1's associative scan at falcon-mamba-7b's width and
+    train_4k's length: (a) one block's forward and backward against an f64
+    step loop, beside the per-step loop's readings; (b) the trainer's step
+    on a one-rank NCCL group and a (1, 1) mesh, cut in depth; (c) the full
+    64-layer prefill. The rmsnorm count is set to 0 before (b) and read
+    after (c); the norm check at (b)'s rows comes before it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    out = {"block": _scan_block(ssm, get_arch, card)}
+    part_s = {"block": time.perf_counter() - t0}
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"20: expected a one-rank NCCL group, got "
+             f"{dist.get_backend()} x {dist.get_world_size()}")
+    out["train"] = _scan_train_step(T, models, rn, layers, get_arch, mesh,
+                                    card)
+    dist.destroy_process_group()
+    part_s["train"] = time.perf_counter() - t0 - sum(part_s.values())
+    out["prefill"] = _scan_prefill(models, rn, get_arch, card)
+    part_s["prefill"] = time.perf_counter() - t0 - sum(part_s.values())
+    out["part_seconds"] = part_s
+    out["launches"] = {"rmsnorm": rn.LAUNCHES}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[20] launches on the phase's path: rmsnorm {rn.LAUNCHES}; "
+          f"{out['seconds']:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in part_s.items()) + ")")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -4010,6 +4393,7 @@ def main() -> None:
     from repro_torch.launch import federated_lm, serve
     from repro_torch.models import layers
     from repro_torch.models import moe
+    from repro_torch.models import ssm
     from repro_torch.models import registry as models
     from repro_torch import smoke
     from repro_torch.config import LambdaLimits
@@ -4126,6 +4510,10 @@ def main() -> None:
          elastic_reshard, serve_sharded, train_federated_lm),
         fs, q, tk, sgd, rn, models, get_arch, FederatedSession, card)
     clock.append(("19 examples", time.perf_counter()))
+    # phase 20: Mamba-1's associative scan at training length
+    torch.cuda.empty_cache()
+    scan = phase_scan(ssm, models, rn, layers, get_arch, card)
+    clock.append(("20 Mamba-1 scan", time.perf_counter()))
     phase_s = {label: t - clock[i][1]
                for i, (label, t) in enumerate(clock[1:])}
     print(f"phase seconds ({card}): " + ", ".join(
@@ -4156,7 +4544,8 @@ def main() -> None:
                                    "models": families},
                       "long_context": long_ctx, "federated_cnn": fl_cnn,
                       "trainer": trainer, "tp": tp, "tp_families": tpf,
-                      "examples": ex, "phase_seconds": phase_s,
+                      "examples": ex, "mamba1_scan": scan,
+                      "phase_seconds": phase_s,
                       "card": card}))
     kernels = [{
         "name": "fedavg_stream", "route": "cuda",
@@ -4208,11 +4597,13 @@ def main() -> None:
     kernels[-1].update({
         "launches": lm_launches["rmsnorm"] + serve_out["launches"]
         + family_launches + trainer["launches"]["rmsnorm"]
-        + tp["launches"]["rmsnorm"] + tpf["launches"]["rmsnorm"],
+        + tp["launches"]["rmsnorm"] + tpf["launches"]["rmsnorm"]
+        + scan["launches"]["rmsnorm"],
         "max_abs_err": max(lm_errs["rmsnorm"], serve_norm_err,
                            family_norm_err, trainer["rmsnorm_max_abs_err"],
                            tp["rmsnorm_max_abs_err"],
-                           tpf["split_max_abs_err"]),
+                           tpf["split_max_abs_err"],
+                           scan["train"]["rmsnorm_max_abs_err"]),
         "device_ms": norm["device_ms"],
         "library_device_ms": norm["library_device_ms"],
         "copy_device_ms": norm["copy_device_ms"],
@@ -4242,6 +4633,9 @@ def main() -> None:
         "tp_families": {"launches": tpf["launches"]["rmsnorm"],
                         "per_step": {a: r["rmsnorm_per_step"] for a, r in
                                      tpf["models"].items()}},
+        "mamba1_scan": {"launches": scan["launches"]["rmsnorm"],
+                        "train_per_step": scan["train"]["rmsnorm_per_step"],
+                        "prefill": scan["prefill"]["rmsnorm_launches"]},
         "split": _split_line(tpf)})
     for row in kernels:                  # phase 19's launches
         row["examples"] = ex["launches"][row["name"]]

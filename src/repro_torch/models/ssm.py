@@ -10,11 +10,12 @@ over leaf for leaf. ``dt_bias``, ``a_log`` and ``d_skip`` are f32 whatever
   left-padded, channels-first view; the reference's ``(K, C)`` weight is
   read as ``(C, 1, K)``.
 * Mamba-1's recurrence ``h_t = exp(dt_t·A)·h_{t-1} + dt_t·x_t·B_t`` runs
-  chunk by chunk as in the reference, but within a chunk as a loop over
-  its steps, where the reference combines the steps with an associative
-  scan (``lax.associative_scan`` has no torch counterpart). The products
-  and sums run in another order, so results agree to rounding (the tests
-  state the tolerance).
+  chunk by chunk as in the reference, and within a chunk through the
+  reference's associative scan (:func:`_assoc_scan_chunk`):
+  :func:`associative_scan` is ``lax.associative_scan``'s odd/even
+  recursion in torch ops, each product and sum in the reference's order,
+  so a chunk's states equal the reference's bit for bit on the same
+  inputs. Gradients come from autograd through the same ops.
 * Mamba-2's SSD is the reference's quadratic-within-chunk,
   linear-across-chunks form; its decay ``exp(cl_i - cl_j)`` may overflow
   above the diagonal, and ``torch.where`` masks it as the reference's
@@ -139,6 +140,61 @@ def mamba1_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
             for name, t in p.items()}
 
 
+def associative_scan(fn, elems: tuple, axis: int = 0) -> tuple:
+    """Inclusive scan of the tuple of tensors ``elems`` along ``axis``
+    under the associative ``fn(l, r)`` (tuples in, a tuple out):
+    ``jax.lax.associative_scan``'s recursion, so that ``fn`` combines the
+    same elements in the same order. Pairs of neighbours are reduced and
+    scanned by recursion, which gives the odd places; each even place
+    (but the first, the first element itself) combines the odd place
+    before it with its own element; the two are interleaved. Built from
+    slices, ``torch.cat`` and ``torch.stack``: no fused or reordered
+    arithmetic beyond ``fn``'s own. (The reference interleaves by padding
+    with zeros and adding, which turns a -0.0 into +0.0; here a -0.0
+    stays.)"""
+    def take(e, start, stop=None, step=1):
+        return e[(slice(None),) * axis + (slice(start, stop, step),)]
+
+    def interleave(even, odd):
+        # even holds as many places as odd, or one more (the last)
+        n = odd.shape[axis]
+        pairs = torch.stack([take(even, 0, n), odd], dim=axis + 1)
+        joined = pairs.flatten(axis, axis + 1)
+        if even.shape[axis] == n:
+            return joined
+        return torch.cat([joined, take(even, n)], dim=axis)
+
+    def scan(elems):
+        n = elems[0].shape[axis]
+        if n < 2:
+            return elems
+        odd = scan(fn(tuple(take(e, 0, -1, 2) for e in elems),
+                      tuple(take(e, 1, None, 2) for e in elems)))
+        rest = tuple(take(e, 2, None, 2) for e in elems)
+        even = fn(tuple(take(o, 0, -1) for o in odd) if n % 2 == 0
+                  else odd, rest)
+        even = tuple(torch.cat([take(e, 0, 1), r], dim=axis)
+                     for e, r in zip(elems, even))
+        return tuple(interleave(e, o) for e, o in zip(even, odd))
+
+    elems = tuple(elems)
+    axis %= elems[0].dim()
+    return scan(elems)
+
+
+def _assoc_scan_chunk(da, db, h0):
+    """h_t = da_t * h_{t-1} + db_t within one chunk via associative scan.
+
+    da, db: (B, C, di, ds) f32; h0: (B, di, ds). Returns (h (B,C,di,ds),
+    h_last)."""
+    def comb(l, r):
+        return (r[0] * l[0], r[0] * l[1] + r[1])
+
+    a_cum, b_cum = associative_scan(comb, (da, db), axis=1)
+    h = a_cum * h0[:, None] + b_cum
+    return h, h[:, -1]
+
+
 def mamba1_ssm(dt, bmat, cmat, xc, a, h0, chunk: int):
     """Chunked selective scan.
 
@@ -155,12 +211,8 @@ def mamba1_ssm(dt, bmat, cmat, xc, a, h0, chunk: int):
         sl = slice(lo, lo + chunk)
         da = torch.exp(dt[:, sl, :, None] * a)                   # (B,C,di,ds)
         db = (dt[:, sl] * xc[:, sl])[..., None] * bmat[:, sl, None, :]
-        hs = []
-        for i in range(da.shape[1]):
-            h = da[:, i] * h + db[:, i]
-            hs.append(h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1),
-                               cmat[:, sl]))
+        h_seq, h = _assoc_scan_chunk(da, db, h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_seq, cmat[:, sl]))
     return torch.cat(ys, dim=1), h
 
 

@@ -1121,3 +1121,38 @@ def test_family_model1_serve_step_is_the_meshless_step_on_card(arch):
     for (ka, a), (kb, b) in zip(leaves(caches[0]), leaves(caches[1])):
         assert ka == kb and torch.equal(a, b), ka
     torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 7, 16, 255, 256])
+def test_assoc_scan_chunk_on_card_equals_cpu(c):
+    """Mamba-1's associative scan (`ssm._assoc_scan_chunk`) on the card
+    equals the CPU's bit for bit on the same inputs: its `*` and `+` run as
+    separate kernels on both, with no contraction; and `mamba1_ssm`'s
+    gradients on the card within 1e-5 · max |want| of the CPU's (the `exp`
+    and the einsum with C may round apart)."""
+    from repro_torch.models import ssm
+
+    _need_card()
+    gen = torch.Generator().manual_seed(c)
+    da = torch.exp(-0.2 * torch.rand((2, c, 64, 16), generator=gen))
+    db = torch.randn((2, c, 64, 16), generator=gen)
+    h0 = torch.randn((2, 64, 16), generator=gen)
+    want = ssm._assoc_scan_chunk(da, db, h0)
+    got = ssm._assoc_scan_chunk(da.cuda(), db.cuda(), h0.cuda())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+    s = 2 * c
+    ins = [0.02 * torch.rand((2, s, 64), generator=gen),
+           torch.randn((2, s, 16), generator=gen),
+           torch.randn((2, s, 16), generator=gen),
+           torch.randn((2, s, 64), generator=gen),
+           -torch.rand((64, 16), generator=gen) - 0.5, h0]
+    grads = []
+    for dev in ("cpu", "cuda"):
+        ts = [t.detach().to(dev).requires_grad_() for t in ins]
+        y, h = ssm.mamba1_ssm(*ts, c)
+        (y.sum() + h.sum()).backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for g, w in zip(grads[1], grads[0]):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())

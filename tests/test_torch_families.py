@@ -7,11 +7,13 @@ initialisation carried over by `convert.params_from_jax`) and the same
 seeded numpy tokens and frames, at f32 compute. Tolerances:
 
 * forward logits, loss and decode logits against the reference: rtol =
-  atol = 1e-4, every family. The SSM scan is no looser here: the port's
-  Mamba-1 recurrence runs step by step where the reference uses an
-  associative scan, and its SSD sums run in another einsum order, but at
-  the smoke widths (a chunk of 16 steps, d_state 8) the logits of the two
-  orders differ by under 1e-6, as the dense family's do;
+  atol = 1e-4, every family. The SSM families are no looser here: the
+  port's Mamba-1 recurrence runs the reference's associative scan in the
+  reference's order (a chunk's states equal bit for bit,
+  `tests/test_torch_ssm_scan.py`), and what is left to rounding is the
+  `exp`, the einsums and Mamba-2's SSD sums, which run in another einsum
+  order; at the smoke widths (a chunk of 16 steps, d_state 8) the logits
+  differ by under 1e-6, as the dense family's do;
 * every gradient leaf: max |got - want| <= 1e-4 * max |want|;
 * decode against the port's own forward: rtol = atol = 5e-3, the
   reference's (`tests/test_models.py:102`), with the MoE at
