@@ -50,6 +50,7 @@ from repro_torch.serverless.population import (ClientPopulation,
                                                run_population_round)
 from repro_torch.serverless.runtime import FaultPlan, LambdaRuntime
 from repro_torch.store import ObjectStore
+from repro_torch.tracing import span
 
 
 @dataclass(frozen=True)
@@ -316,13 +317,16 @@ class FederatedSession:
             raise ValueError(
                 "client_grads is required unless SessionConfig.population "
                 "is set")
-        client_grads = [as_grad_tensor(g, self.device) for g in client_grads]
-        if self._client_ready is not None \
-                and len(self._client_ready) != len(client_grads):
-            # per-round client sampling: carried read-back times index the
-            # previous round's cohort, so a resized cohort starts fresh
-            # from the runtime cursor instead of inheriting wrong times
-            self._client_ready = None
+        with span("agg.plan"):
+            client_grads = [as_grad_tensor(g, self.device)
+                            for g in client_grads]
+            if self._client_ready is not None \
+                    and len(self._client_ready) != len(client_grads):
+                # per-round client sampling: carried read-back times index
+                # the previous round's cohort, so a resized cohort starts
+                # fresh from the runtime cursor instead of inheriting wrong
+                # times
+                self._client_ready = None
         result = run_round(
             self.topology, client_grads, rnd=rnd, store=self.store,
             runtime=self.runtime, engine=cfg.engine, schedule=cfg.schedule,
@@ -363,13 +367,14 @@ class FederatedSession:
 
     def _finish_round(self, result: AggregationResult,
                       rnd: int) -> AggregationResult:
-        self._observe(result)
-        if not self.config.keep_records:
-            self._compact(rnd)
-            # the per-client read-back array is threaded into the next
-            # round via _client_ready; retaining a copy on every yielded
-            # result would grow O(N·rounds) in callers that keep results
-            result.client_done_s = ()
+        with span("agg.compact"):
+            self._observe(result)
+            if not self.config.keep_records:
+                self._compact(rnd)
+                # the per-client read-back array is threaded into the next
+                # round via _client_ready; retaining a copy on every yielded
+                # result would grow O(N·rounds) in callers that keep results
+                result.client_done_s = ()
         self.rounds_run = max(self.rounds_run, rnd + 1)
         return result
 

@@ -87,6 +87,7 @@ from repro_torch.core.wire_codec import (EncodedView, WirePayload,
 from repro_torch.kernels import fedavg_stream
 from repro_torch.serverless.event_sim import ReadAheadWindow
 from repro_torch.store import ObjectStore
+from repro_torch.tracing import span
 
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -297,9 +298,11 @@ def _evaluate_kernel(pending: Sequence[LazyAverage],
         wave = [nd for nd in pending
                 if not any(isinstance(x, LazyAverage) and x.out is None
                            for x in nd.inputs)]
-        outs = fedavg_stream.fold_nodes(
-            [([_materialize(x) for x in nd.inputs], nd.weights)
-             for nd in wave], acc="f64")
+        with span("codec.decode"):
+            groups = [([_materialize(x) for x in nd.inputs], nd.weights)
+                      for nd in wave]
+        with span("fold.launch"):
+            outs = fedavg_stream.fold_nodes(groups, acc="f64")
         for nd, out in zip(wave, outs):
             nd.out = out
         pending = [nd for nd in pending if nd.out is None]

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize import f32_scalar
+from repro_torch.tracing import span
 
 
 def streaming_mean(chunks: Iterable[torch.Tensor],
@@ -81,9 +82,11 @@ def local_sgd_update(loss_fn: Callable, params: Mapping[str, torch.Tensor],
     for p in leaves:
         if not p.requires_grad:
             p.requires_grad_(True)
-    loss, _ = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, leaves)
-    with torch.no_grad():
+    with span("step.forward"):
+        loss, _ = loss_fn(params, batch)
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad(), span("step.optimizer"):
         if momentum:
             if velocity is None:
                 # detlint: allow[ORD001] a per-key map of zero buffers;
@@ -106,14 +109,14 @@ def model_delta(old_params: Mapping[str, torch.Tensor],
                 new_params: Mapping[str, torch.Tensor]) -> dict:
     """Update transmitted by a client: old - new (so that ``p - 1·delta``
     reproduces new)."""
-    with torch.no_grad():
+    with torch.no_grad(), span("client.delta"):
         return {k: old_params[k] - new_params[k] for k in old_params}
 
 
 def apply_delta(params: Mapping[str, torch.Tensor],
                 delta: Mapping[str, torch.Tensor], scale: float = 1.0
                 ) -> dict:
-    with torch.no_grad():
+    with torch.no_grad(), span("apply.delta"):
         # detlint: allow[ORD001] a per-key map: each leaf's update is
         # independent, so the order never reaches the arithmetic
         return {k: p - delta[k] * scale for k, p in params.items()}

@@ -30,6 +30,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.tracing import span
+
 
 # ---------------------------------------------------------------------------
 # Flatten / unflatten
@@ -57,14 +59,15 @@ def flatten(tree: Mapping[str, torch.Tensor], dtype=torch.float32
             ) -> tuple[torch.Tensor, FlatSpec]:
     """A dict of tensors under dotted names -> (one flat ``dtype`` vector
     of every leaf raveled in the reference's leaf order, its spec)."""
-    names = leaf_order(tree)
-    leaves = [tree[name] for name in names]
-    spec = FlatSpec(names=tuple(names),
-                    shapes=tuple(tuple(t.shape) for t in leaves),
-                    dtypes=tuple(t.dtype for t in leaves),
-                    sizes=tuple(t.numel() for t in leaves))
-    flat = torch.cat([t.reshape(-1).to(dtype) for t in leaves]) if leaves \
-        else torch.zeros((0,), dtype=dtype)
+    with span("flat.flatten"):
+        names = leaf_order(tree)
+        leaves = [tree[name] for name in names]
+        spec = FlatSpec(names=tuple(names),
+                        shapes=tuple(tuple(t.shape) for t in leaves),
+                        dtypes=tuple(t.dtype for t in leaves),
+                        sizes=tuple(t.numel() for t in leaves))
+        flat = torch.cat([t.reshape(-1).to(dtype) for t in leaves]) \
+            if leaves else torch.zeros((0,), dtype=dtype)
     return flat, spec
 
 
@@ -72,10 +75,11 @@ def unflatten(flat: torch.Tensor, spec: FlatSpec) -> dict:
     """The inverse of :func:`flatten`: leaves are views of ``flat`` where
     the types agree."""
     out, off = {}, 0
-    for name, shape, dt, size in zip(spec.names, spec.shapes, spec.dtypes,
-                                     spec.sizes):
-        out[name] = flat[off:off + size].reshape(shape).to(dt)
-        off += size
+    with span("flat.unflatten"):
+        for name, shape, dt, size in zip(spec.names, spec.shapes,
+                                         spec.dtypes, spec.sizes):
+            out[name] = flat[off:off + size].reshape(shape).to(dt)
+            off += size
     return out
 
 

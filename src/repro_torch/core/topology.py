@@ -74,6 +74,7 @@ from repro_torch.serverless.faults import FaultModel, StaleBuffer, StalenessPoli
 from repro_torch.serverless.runtime import FaultPlan, InvocationRecord, \
     LambdaRuntime
 from repro_torch.store import ObjectStore
+from repro_torch.tracing import span
 
 MB = 1024 * 1024
 
@@ -875,308 +876,315 @@ def run_round(topology: str | Topology,
     ``client_grads`` are flat f32 tensors (numpy arrays are taken as CPU
     tensors); the fold runs on their device.
     """
-    topo = topology if isinstance(topology, Topology) \
-        else get_topology(topology)
-    topo.validate_options(options)
-    client_grads = [as_grad_tensor(g) for g in client_grads]
-    backend = get_backend(engine, workers=workers, host_mesh=host_mesh,
-                          device=client_grads[0].device if client_grads
-                          else None)
-    sched = get_schedule(schedule)
-    barrier = sched == "barrier"
-    # validate unconditionally (a bad knob must not pass silently just
-    # because the schedule is barrier); apply only where it means something
-    readahead = get_readahead(readahead_k)
-    if barrier:
-        readahead = 1
-    cdc = get_codec(codec)
-    n = len(client_grads)
-    validate_fault_knobs(sched, participation_k=participation_k,
-                         deadline_s=deadline_s, quorum=quorum,
-                         faults=faults, n_clients=n,
-                         staleness_policy=staleness_policy,
-                         hedge_factor=hedge_factor,
-                         allow_auto_quorum=schedule is None
-                         or schedule == "auto")
-    limits = runtime.limits
-    p0, g0 = store.stats.puts, store.stats.gets
-    rec_start = len(runtime.records)
-    base = _round_base(runtime, client_ready_s)
+    with span("agg.plan"):
+        topo = topology if isinstance(topology, Topology) \
+            else get_topology(topology)
+        topo.validate_options(options)
+        client_grads = [as_grad_tensor(g) for g in client_grads]
+        backend = get_backend(engine, workers=workers, host_mesh=host_mesh,
+                              device=client_grads[0].device if client_grads
+                              else None)
+        sched = get_schedule(schedule)
+        barrier = sched == "barrier"
+        # validate unconditionally (a bad knob must not pass silently just
+        # because the schedule is barrier); apply only where it means something
+        readahead = get_readahead(readahead_k)
+        if barrier:
+            readahead = 1
+        cdc = get_codec(codec)
+        n = len(client_grads)
+        validate_fault_knobs(sched, participation_k=participation_k,
+                             deadline_s=deadline_s, quorum=quorum,
+                             faults=faults, n_clients=n,
+                             staleness_policy=staleness_policy,
+                             hedge_factor=hedge_factor,
+                             allow_auto_quorum=schedule is None
+                             or schedule == "auto")
+        limits = runtime.limits
+        p0, g0 = store.stats.puts, store.stats.gets
+        rec_start = len(runtime.records)
+        base = _round_base(runtime, client_ready_s)
 
-    # -- membership: participation sampling, dropout, stalls -----------------
-    if faults is not None:
-        _bind_runtime_faults(runtime, faults)
-    if participation_k is not None and participation_k < n:
-        participants = list((faults or _NO_FAULTS)
-                            .participants(n, rnd, participation_k))
-    else:
-        participants = list(range(n))
-    dropped: tuple = ()
-    stalls = None
-    order = participants
-    if faults is not None:
-        drop = faults.dropout_plan(n, rnd)
-        dropped = tuple(i for i in participants if drop[i])
-        order = [i for i in participants if not drop[i]]
-        st = faults.stall_plan(n, rnd)
-        if st.any():
-            stalls = st
-    if not order:
-        detail = "" if faults is None else (
-            f" (dropout_rate={faults.dropout_rate}, seed={faults.seed})")
-        raise RuntimeError(f"round {rnd}: no active participants{detail}")
+        # -- membership: participation sampling, dropout, stalls -----------------
+        if faults is not None:
+            _bind_runtime_faults(runtime, faults)
+        if participation_k is not None and participation_k < n:
+            participants = list((faults or _NO_FAULTS)
+                                .participants(n, rnd, participation_k))
+        else:
+            participants = list(range(n))
+        dropped: tuple = ()
+        stalls = None
+        order = participants
+        if faults is not None:
+            drop = faults.dropout_plan(n, rnd)
+            dropped = tuple(i for i in participants if drop[i])
+            order = [i for i in participants if not drop[i]]
+            st = faults.stall_plan(n, rnd)
+            if st.any():
+                stalls = st
+        if not order:
+            detail = "" if faults is None else (
+                f" (dropout_rate={faults.dropout_rate}, seed={faults.seed})")
+            raise RuntimeError(f"round {rnd}: no active participants{detail}")
 
-    def build(members, stale=()):
-        """Program + pure upload schedule over one membership (cohort
-        indices), plus any staleness-weighted re-entries appended after
-        the fresh members (their PUTs complete at the buffered re-entry
-        times, not this round's upload schedule). Nothing here touches
-        runtime or store state, so the fault-tolerant path can probe
-        arrival times before committing."""
-        sub = [client_grads[i] for i in members] \
-            + [e.grad for e, _w in stale]
-        weights = None if not stale else tuple(
-            [1.0] * len(members) + [w for _e, w in stale])
-        spec = RoundSpec(rnd=rnd, n=len(sub),
-                         grad_bytes=int(sub[0].nbytes),
-                         limits=limits, options=options, codec=cdc,
-                         weights=weights)
-        prog = topo.program(sub, spec, backend)
-        up, put_times = _upload_schedule(
-            upload, members, n, rnd, base, client_ready_s,
-            prog.uploads[:len(members)], stalls)
-        for pos in range(len(members), len(sub)):
-            e, _w = stale[pos - len(members)]
-            put_times.append([(key, e.ready_s)
-                              for key, _nb in prog.uploads[pos]])
-        return sub, prog, up, put_times
+        def build(members, stale=()):
+            """Program + pure upload schedule over one membership (cohort
+            indices), plus any staleness-weighted re-entries appended after
+            the fresh members (their PUTs complete at the buffered re-entry
+            times, not this round's upload schedule). Nothing here touches
+            runtime or store state, so the fault-tolerant path can probe
+            arrival times before committing."""
+            sub = [client_grads[i] for i in members] \
+                + [e.grad for e, _w in stale]
+            weights = None if not stale else tuple(
+                [1.0] * len(members) + [w for _e, w in stale])
+            spec = RoundSpec(rnd=rnd, n=len(sub),
+                             grad_bytes=int(sub[0].nbytes),
+                             limits=limits, options=options, codec=cdc,
+                             weights=weights)
+            prog = topo.program(sub, spec, backend)
+            up, put_times = _upload_schedule(
+                upload, members, n, rnd, base, client_ready_s,
+                prog.uploads[:len(members)], stalls)
+            for pos in range(len(members), len(sub)):
+                e, _w = stale[pos - len(members)]
+                put_times.append([(key, e.ready_s)
+                                  for key, _nb in prog.uploads[pos]])
+            return sub, prog, up, put_times
 
-    sub, prog, up, put_times = build(order)
+        sub, prog, up, put_times = build(order)
 
-    # stale re-entry bookkeeping needs the *pre-cut* probe: a late
-    # client's re-entry time is its probed upload completion, and a
-    # dropped client's upload shape (key count / byte sizes) is the same
-    # as any member's
-    stale_active = staleness_policy is not None and stale_buffer is not None
-    if stale_active:
-        probe_end = {i: up.end_s[pos] for pos, i in enumerate(order)}
-        probe_key_bytes = tuple(prog.uploads[0])
+        # stale re-entry bookkeeping needs the *pre-cut* probe: a late
+        # client's re-entry time is its probed upload completion, and a
+        # dropped client's upload shape (key count / byte sizes) is the same
+        # as any member's
+        stale_active = staleness_policy is not None and stale_buffer is not None
+        if stale_active:
+            probe_end = {i: up.end_s[pos] for pos, i in enumerate(order)}
+            probe_key_bytes = tuple(prog.uploads[0])
 
-    # -- deadline / quorum cut on the probed arrival times -------------------
-    late: tuple = ()
-    deadline_abs = None if deadline_s is None else base + float(deadline_s)
-    if deadline_abs is not None or sched == "quorum":
-        if sched == "quorum" and quorum is not None \
-                and deadline_abs is not None:
-            # precedence: the deadline cuts first, the quorum gates
-            # within its survivors — a quorum the post-deadline arrivals
-            # cannot satisfy is a config error, not a silent smaller fold
-            survivors = arrival_order(up.end_s, deadline_s=deadline_abs)
-            if len(survivors) < quorum:
-                raise ValueError(
-                    f"round {rnd}: quorum={quorum} exceeds the "
-                    f"{len(survivors)} arrival(s) left by the deadline "
-                    f"({deadline_s:.3f} s); the deadline cuts first and "
-                    f"the quorum gates within its survivors — lower the "
-                    f"quorum or relax the deadline")
-        keep = arrival_order(up.end_s, quorum=quorum,
-                             deadline_s=deadline_abs)
-        if not keep:
-            raise RuntimeError(
-                f"round {rnd}: no client upload completed by the deadline "
-                f"({deadline_s:.3f} s) — nothing to aggregate")
-        if sched != "quorum":
-            keep.sort()           # a deadline alone never reorders the fold
-        kept = [order[pos] for pos in keep]
-        kept_set = set(kept)
-        late = tuple(i for i in order if i not in kept_set)
-        if kept != order:
-            # membership shrank (or the quorum reordered the fold):
-            # rebuild over the survivors. The probe's puts were never
-            # stored and its events never registered, so only this final
-            # program touches runtime/store state.
-            order = kept
-            sub, prog, up, put_times = build(order)
+        # -- deadline / quorum cut on the probed arrival times -------------------
+        late: tuple = ()
+        deadline_abs = None if deadline_s is None else base + float(deadline_s)
+        if deadline_abs is not None or sched == "quorum":
+            if sched == "quorum" and quorum is not None \
+                    and deadline_abs is not None:
+                # precedence: the deadline cuts first, the quorum gates
+                # within its survivors — a quorum the post-deadline arrivals
+                # cannot satisfy is a config error, not a silent smaller fold
+                survivors = arrival_order(up.end_s, deadline_s=deadline_abs)
+                if len(survivors) < quorum:
+                    raise ValueError(
+                        f"round {rnd}: quorum={quorum} exceeds the "
+                        f"{len(survivors)} arrival(s) left by the deadline "
+                        f"({deadline_s:.3f} s); the deadline cuts first and "
+                        f"the quorum gates within its survivors — lower the "
+                        f"quorum or relax the deadline")
+            keep = arrival_order(up.end_s, quorum=quorum,
+                                 deadline_s=deadline_abs)
+            if not keep:
+                raise RuntimeError(
+                    f"round {rnd}: no client upload completed by the deadline "
+                    f"({deadline_s:.3f} s) — nothing to aggregate")
+            if sched != "quorum":
+                keep.sort()           # a deadline alone never reorders the fold
+            kept = [order[pos] for pos in keep]
+            kept_set = set(kept)
+            late = tuple(i for i in order if i not in kept_set)
+            if kept != order:
+                # membership shrank (or the quorum reordered the fold):
+                # rebuild over the survivors. The probe's puts were never
+                # stored and its events never registered, so only this final
+                # program touches runtime/store state.
+                order = kept
+                sub, prog, up, put_times = build(order)
 
-    # -- stale re-entry: fold buffered gradients available by the cut --------
-    # the cut is this round's deterministic completion frontier: the
-    # deadline when one is set, else the (post-cut) fresh upload span —
-    # which under schedule="quorum" is exactly the q-th fresh arrival.
-    # Stale entries never gate the quorum; they ride along, weighted.
-    stale_sel: list = []
-    if stale_active:
-        cut_s = deadline_abs if deadline_abs is not None else up.span_end_s
-        stale_sel = stale_buffer.take_ready(cut_s, rnd, staleness_policy)
-        if stale_sel:
-            sub, prog, up, put_times = build(order, stale_sel)
+        # -- stale re-entry: fold buffered gradients available by the cut --------
+        # the cut is this round's deterministic completion frontier: the
+        # deadline when one is set, else the (post-cut) fresh upload span —
+        # which under schedule="quorum" is exactly the q-th fresh arrival.
+        # Stale entries never gate the quorum; they ride along, weighted.
+        stale_sel: list = []
+        if stale_active:
+            cut_s = deadline_abs if deadline_abs is not None else up.span_end_s
+            stale_sel = stale_buffer.take_ready(cut_s, rnd, staleness_policy)
+            if stale_sel:
+                sub, prog, up, put_times = build(order, stale_sel)
 
     # -- client uploads: values land immediately, availability is modeled ----
-    for key, value in prog.client_puts:
-        store.put(key, value)
-    _publish_uploads(runtime, put_times)
+    with span("agg.upload"):
+        for key, value in prog.client_puts:
+            store.put(key, value)
+        _publish_uploads(runtime, put_times)
 
     # -- aggregation phases ---------------------------------------------------
-    shared: dict = {}
-    handles = []
-    hedges = hedge_wins = 0
-    hedging = hedge_factor is not None and not barrier
-    prev_end = max(base, up.span_end_s)
-    if stale_sel:
-        # a barrier waits for every folded input, stale re-entries included
-        prev_end = max(prev_end, max(e.ready_s for e, _w in stale_sel))
-    if barrier and late and deadline_abs is not None:
-        # stragglers were cut: the barrier only learns membership at T
-        prev_end = max(prev_end, deadline_abs)
-    first_start = prev_end
-    for phase in prog.phases:
-        ph = runtime.phase(start_s=prev_end if barrier else base)
-        for inv in phase:
-            body = _build_body(backend, store, shared, inv, readahead)
-            # colocated hops have nothing to prefetch and keep the 3x
-            # formula; _alloc_mb clamps the window to the fan-in
-            inv_k = 1 if inv.colocated_in else readahead
-            mem = _alloc_mb(inv.alloc_bytes, limits, inv_k,
-                            fanin=len(inv.in_keys),
-                            wire_in_bytes=inv.wire_in_bytes,
-                            weighted=inv.weights is not None)
-            inv_limits = tier_limits(limits, inv.read_mbps, inv.write_mbps)
-            if barrier:
-                ph.invoke_reliable(
-                    body, fn_name=inv.fn_name, memory_mb=mem,
-                    straggler_threshold_s=straggler_threshold_s,
-                    limits=None if inv_limits is limits else inv_limits)
-            else:
-                # launch on the first available input inside the window
-                # [frontier, frontier + k) — k=1 is the legacy "first
-                # in-index contribution" gating
-                avail = [runtime.avail.time_of(key, base)
-                         for key in inv.in_keys[:inv_k]]
-                launch = max(base, ReadAheadWindow.launch_s(avail, inv_k))
-                hedge_this = hedging and not inv.colocated_in
-                if hedge_this:
-                    was_warm = runtime.is_warm(inv.fn_name)
-                ph.invoke_reliable(
-                    body, fn_name=inv.fn_name, memory_mb=mem,
-                    straggler_threshold_s=straggler_threshold_s,
-                    launch_s=launch, wait_avail=True, out_key=inv.out_key,
-                    limits=None if inv_limits is limits else inv_limits)
-                if hedge_this:
-                    # speculative hedging: replay the aggregator's fault-
-                    # free expected finish off its read-ahead frontier
-                    # (the exact cost-model parity arithmetic); a primary
-                    # whose retry chain overran the hedge threshold races
-                    # a replica on the same keyspace — first finisher
-                    # wins, the loser stays billed
-                    rec = ph.winners[-1]
-                    exp = cm.expected_fold_finish_s(
-                        launch,
-                        [runtime.avail.time_of(key, base)
-                         for key in inv.in_keys],
-                        [inv.alloc_bytes] * len(inv.in_keys),
-                        inv.alloc_bytes, inv_limits, cold=not was_warm,
-                        readahead_k=inv_k,
-                        wire_bytes=None if inv.wire_in_bytes is None
-                        else [inv.wire_in_bytes] * len(inv.in_keys),
-                        decode_s=cdc.decode_cost_s(inv.alloc_bytes)
-                        if inv.wire_in_bytes is not None else 0.0)
-                    thresh = launch + float(hedge_factor) * (exp - launch)
-                    if rec.end_s > thresh:
-                        hedges += 1
-                        hedge_wins += int(ph.hedge_last(
-                            body, fn_name=inv.fn_name + "~hedge",
-                            memory_mb=mem, launch_s=thresh,
-                            out_key=inv.out_key,
-                            limits=None if inv_limits is limits
-                            else inv_limits))
-        prev_end = runtime.finish_phase(ph, barrier=barrier)
-        handles.append(ph)
-    agg_end = prev_end
-    if not barrier and late and deadline_abs is not None:
-        # a cut round is only known complete at the deadline itself
-        agg_end = max(agg_end, deadline_abs)
-        runtime.advance_to(agg_end)
-    if barrier:
-        wall = (first_start - base) + sum(ph.wall_s for ph in handles)
-        phases = tuple(ph.wall_s for ph in handles)
-    else:
-        wall = agg_end - base
-        phases = tuple(ph.end_s - base for ph in handles)
-    backend.end_round(store)
+    with span("agg.invoke"):
+        shared: dict = {}
+        handles = []
+        hedges = hedge_wins = 0
+        hedging = hedge_factor is not None and not barrier
+        prev_end = max(base, up.span_end_s)
+        if stale_sel:
+            # a barrier waits for every folded input, stale re-entries included
+            prev_end = max(prev_end, max(e.ready_s for e, _w in stale_sel))
+        if barrier and late and deadline_abs is not None:
+            # stragglers were cut: the barrier only learns membership at T
+            prev_end = max(prev_end, deadline_abs)
+        first_start = prev_end
+        for phase in prog.phases:
+            ph = runtime.phase(start_s=prev_end if barrier else base)
+            for inv in phase:
+                body = _build_body(backend, store, shared, inv, readahead)
+                # colocated hops have nothing to prefetch and keep the 3x
+                # formula; _alloc_mb clamps the window to the fan-in
+                inv_k = 1 if inv.colocated_in else readahead
+                mem = _alloc_mb(inv.alloc_bytes, limits, inv_k,
+                                fanin=len(inv.in_keys),
+                                wire_in_bytes=inv.wire_in_bytes,
+                                weighted=inv.weights is not None)
+                inv_limits = tier_limits(limits, inv.read_mbps, inv.write_mbps)
+                if barrier:
+                    ph.invoke_reliable(
+                        body, fn_name=inv.fn_name, memory_mb=mem,
+                        straggler_threshold_s=straggler_threshold_s,
+                        limits=None if inv_limits is limits else inv_limits)
+                else:
+                    # launch on the first available input inside the window
+                    # [frontier, frontier + k) — k=1 is the legacy "first
+                    # in-index contribution" gating
+                    avail = [runtime.avail.time_of(key, base)
+                             for key in inv.in_keys[:inv_k]]
+                    launch = max(base, ReadAheadWindow.launch_s(avail, inv_k))
+                    hedge_this = hedging and not inv.colocated_in
+                    if hedge_this:
+                        was_warm = runtime.is_warm(inv.fn_name)
+                    ph.invoke_reliable(
+                        body, fn_name=inv.fn_name, memory_mb=mem,
+                        straggler_threshold_s=straggler_threshold_s,
+                        launch_s=launch, wait_avail=True, out_key=inv.out_key,
+                        limits=None if inv_limits is limits else inv_limits)
+                    if hedge_this:
+                        # speculative hedging: replay the aggregator's fault-
+                        # free expected finish off its read-ahead frontier
+                        # (the exact cost-model parity arithmetic); a primary
+                        # whose retry chain overran the hedge threshold races
+                        # a replica on the same keyspace — first finisher
+                        # wins, the loser stays billed
+                        rec = ph.winners[-1]
+                        exp = cm.expected_fold_finish_s(
+                            launch,
+                            [runtime.avail.time_of(key, base)
+                             for key in inv.in_keys],
+                            [inv.alloc_bytes] * len(inv.in_keys),
+                            inv.alloc_bytes, inv_limits, cold=not was_warm,
+                            readahead_k=inv_k,
+                            wire_bytes=None if inv.wire_in_bytes is None
+                            else [inv.wire_in_bytes] * len(inv.in_keys),
+                            decode_s=cdc.decode_cost_s(inv.alloc_bytes)
+                            if inv.wire_in_bytes is not None else 0.0)
+                        thresh = launch + float(hedge_factor) * (exp - launch)
+                        if rec.end_s > thresh:
+                            hedges += 1
+                            hedge_wins += int(ph.hedge_last(
+                                body, fn_name=inv.fn_name + "~hedge",
+                                memory_mb=mem, launch_s=thresh,
+                                out_key=inv.out_key,
+                                limits=None if inv_limits is limits
+                                else inv_limits))
+            prev_end = runtime.finish_phase(ph, barrier=barrier)
+            handles.append(ph)
+        agg_end = prev_end
+        if not barrier and late and deadline_abs is not None:
+            # a cut round is only known complete at the deadline itself
+            agg_end = max(agg_end, deadline_abs)
+            runtime.advance_to(agg_end)
+        if barrier:
+            wall = (first_start - base) + sum(ph.wall_s for ph in handles)
+            phases = tuple(ph.wall_s for ph in handles)
+        else:
+            wall = agg_end - base
+            phases = tuple(ph.end_s - base for ph in handles)
+    with span("agg.fold"):
+        backend.end_round(store)
 
     # -- client read-back (N-1 redundant sweeps batch-accounted in O(1)) -----
-    # the whole cohort reads the round result back (next round's local
-    # training needs it), so read-back op counts stay at cohort size even
-    # when the fold covered a subset
-    values = [store.get(key) for key, _nb in prog.readback]
-    if n > 1:
-        for key, _nb in prog.readback:
-            store.account_gets(key, n - 1)
-    avg = prog.collect(values)
-    member_done = _readback_times(sched, runtime, upload, up,
-                                  prog.readback, agg_end)
-    if order == list(range(n)):
-        client_done = member_done
-    else:
-        # excluded clients re-sync when the aggregate lands (they rejoin
-        # the next round from there); delivered members keep their
-        # modeled download timelines. member_done is fold-position
-        # indexed, so remap to cohort indices for the session threading.
-        client_done = np.full(n, float(agg_end))
-        client_done[np.asarray(order, dtype=np.intp)] = member_done
-    round_end = max(agg_end, float(client_done.max())
-                    if len(client_done) else agg_end)
-    runtime.advance_to(round_end)
+    with span("agg.readback"):
+        # the whole cohort reads the round result back (next round's local
+        # training needs it), so read-back op counts stay at cohort size even
+        # when the fold covered a subset
+        values = [store.get(key) for key, _nb in prog.readback]
+        if n > 1:
+            for key, _nb in prog.readback:
+                store.account_gets(key, n - 1)
+        avg = prog.collect(values)
+        member_done = _readback_times(sched, runtime, upload, up,
+                                      prog.readback, agg_end)
+        if order == list(range(n)):
+            client_done = member_done
+        else:
+            # excluded clients re-sync when the aggregate lands (they rejoin
+            # the next round from there); delivered members keep their
+            # modeled download timelines. member_done is fold-position
+            # indexed, so remap to cohort indices for the session threading.
+            client_done = np.full(n, float(agg_end))
+            client_done[np.asarray(order, dtype=np.intp)] = member_done
+        round_end = max(agg_end, float(client_done.max())
+                        if len(client_done) else agg_end)
+        runtime.advance_to(round_end)
 
-    # -- stale admission: this round's casualties re-enter later rounds ------
-    if stale_active:
-        # late clients: the upload actually completed — at its probed
-        # (pre-cut) time — the round just moved on without it
-        for i in late:
-            stale_buffer.add(i, rnd, probe_end[i], client_grads[i])
-        if dropped:
-            # dropped clients: the device died mid-round and retries its
-            # upload after coming back — probed completion (same seeded
-            # membership-independent draws) plus the policy's fixed
-            # re-entry delay
-            dm = list(dropped)
-            up_d, _ = _upload_schedule(
-                upload, dm, n, rnd, base, client_ready_s,
-                [probe_key_bytes] * len(dm), stalls)
-            for pos, i in enumerate(dm):
-                stale_buffer.add(
-                    i, rnd,
-                    up_d.end_s[pos] + staleness_policy.reentry_delay_s,
-                    client_grads[i])
+        # -- stale admission: this round's casualties re-enter later rounds ------
+        if stale_active:
+            # late clients: the upload actually completed — at its probed
+            # (pre-cut) time — the round just moved on without it
+            for i in late:
+                stale_buffer.add(i, rnd, probe_end[i], client_grads[i])
+            if dropped:
+                # dropped clients: the device died mid-round and retries its
+                # upload after coming back — probed completion (same seeded
+                # membership-independent draws) plus the policy's fixed
+                # re-entry delay
+                dm = list(dropped)
+                up_d, _ = _upload_schedule(
+                    upload, dm, n, rnd, base, client_ready_s,
+                    [probe_key_bytes] * len(dm), stalls)
+                for pos, i in enumerate(dm):
+                    stale_buffer.add(
+                        i, rnd,
+                        up_d.end_s[pos] + staleness_policy.reentry_delay_s,
+                        client_grads[i])
 
-    stale_folded = tuple((e.client, rnd - e.origin_rnd)
-                         for e, _w in stale_sel)
-    hist: dict = {}
-    for _c, s in stale_folded:
-        hist[s] = hist.get(s, 0) + 1
-    fold_weights = None if not stale_sel else tuple(
-        [1.0] * len(order) + [w for _e, w in stale_sel])
+        stale_folded = tuple((e.client, rnd - e.origin_rnd)
+                             for e, _w in stale_sel)
+        hist: dict = {}
+        for _c, s in stale_folded:
+            hist[s] = hist.get(s, 0) + 1
+        fold_weights = None if not stale_sel else tuple(
+            [1.0] * len(order) + [w for _e, w in stale_sel])
 
-    recs = runtime.records[rec_start:]
-    return AggregationResult(
-        topology=prog.topology, avg_flat=avg,
-        wall_clock_s=wall, phases_s=phases, records=recs,
-        puts=store.stats.puts - p0, gets=store.stats.gets - g0,
-        memory_mb=max(r.memory_mb for r in recs),
-        peak_memory_mb=max(r.peak_memory_mb for r in recs),
-        engine=backend.name, schedule=sched, readahead_k=readahead,
-        codec=cdc.name,
-        codec_error=_codec_error(cdc, avg, sub, fold_weights)
-        if track_codec_error else float("nan"),
-        round_start_s=base, round_end_s=round_end,
-        client_done_s=client_done,
-        participants=tuple(participants), arrivals=tuple(order),
-        dropped=dropped, late=late,
-        delivered_fraction=len(order) / len(participants),
-        retries=sum(1 for r in recs if r.failed and not r.speculative),
-        stale_folded=stale_folded,
-        staleness_histogram=tuple(sorted(hist.items())),
-        hedges=hedges, hedge_wins=hedge_wins,
-        limits=limits)
+        recs = runtime.records[rec_start:]
+        result = AggregationResult(
+            topology=prog.topology, avg_flat=avg,
+            wall_clock_s=wall, phases_s=phases, records=recs,
+            puts=store.stats.puts - p0, gets=store.stats.gets - g0,
+            memory_mb=max(r.memory_mb for r in recs),
+            peak_memory_mb=max(r.peak_memory_mb for r in recs),
+            engine=backend.name, schedule=sched, readahead_k=readahead,
+            codec=cdc.name, codec_error=float("nan"),
+            round_start_s=base, round_end_s=round_end,
+            client_done_s=client_done,
+            participants=tuple(participants), arrivals=tuple(order),
+            dropped=dropped, late=late,
+            delivered_fraction=len(order) / len(participants),
+            retries=sum(1 for r in recs if r.failed and not r.speculative),
+            stale_folded=stale_folded,
+            staleness_histogram=tuple(sorted(hist.items())),
+            hedges=hedges, hedge_wins=hedge_wins,
+            limits=limits)
+    with span("codec.error"):
+        if track_codec_error:
+            result.codec_error = _codec_error(cdc, avg, sub, fold_weights)
+    return result
 
 
 def _codec_error(codec: WireCodec, avg: torch.Tensor,
@@ -1245,13 +1253,14 @@ def sharded_client_uploads(client_grads, rnd: int, plan: PartitionPlan,
     m = plan.n_shards
     shard_bytes = [s * 4 for s in plan.shard_sizes()]
     wire_bytes = [codec.wire_bytes(b) for b in shard_bytes]
-    puts, uploads = [], []
-    for i, g in enumerate(client_grads):
-        puts.extend((k_client_shard(rnd, i, j), codec.encode(sh))
-                    for j, sh in enumerate(backend.shard_values(g, plan)))
-        uploads.append([(k_client_shard(rnd, i, j), wire_bytes[j])
-                        for j in range(m)])
-    return tuple(puts), tuple(uploads), shard_bytes, wire_bytes
+    shards = [backend.shard_values(g, plan) for g in client_grads]
+    with span("codec.encode"):
+        puts = tuple((k_client_shard(rnd, i, j), codec.encode(sh))
+                     for i, row in enumerate(shards)
+                     for j, sh in enumerate(row))
+    uploads = tuple([(k_client_shard(rnd, i, j), wire_bytes[j])
+                     for j in range(m)] for i in range(len(client_grads)))
+    return puts, uploads, shard_bytes, wire_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -1316,8 +1325,9 @@ def full_grad_uploads(client_grads, rnd, codec: WireCodec | None = None):
     codec = get_codec(codec)
     grad_bytes = int(client_grads[0].nbytes)
     wire_grad_bytes = codec.wire_bytes(grad_bytes)
-    puts = tuple((k_client_grad(rnd, i), codec.encode(g))
-                 for i, g in enumerate(client_grads))
+    with span("codec.encode"):
+        puts = tuple((k_client_grad(rnd, i), codec.encode(g))
+                     for i, g in enumerate(client_grads))
     uploads = tuple([(k_client_grad(rnd, i), wire_grad_bytes)]
                     for i in range(len(client_grads)))
     return puts, uploads, grad_bytes, wire_grad_bytes
