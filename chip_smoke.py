@@ -8,7 +8,7 @@ Run from the repository root, with no arguments::
 Phases, each fatal on failure:
 
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device is an error;
-2. build the five kernel sources of ``src/repro_torch/kernels/csrc`` with
+2. build the six kernel sources of ``src/repro_torch/kernels/csrc`` with
    nvcc, one process each, all started together;
 3. the fold kernel against its plain PyTorch version on the card, bit for
    bit: every dependency wave of the three topologies at the paper's
@@ -238,7 +238,17 @@ Phases, each fatal on failure:
    recomputes each pre-norm), the step's host wall (median of 3), peak
    device memory, a profiled step's busy share; (c) the full 64-layer
    forward at batch 1 x 4,096 with bf16 weights: host walls, peak device
-   memory, 65 rmsnorm launches a forward.
+   memory, 65 rmsnorm launches a forward;
+21. the causal attention kernel (``kernels.causal_attention``; every phase
+   above that trains or prefills at bf16 with head dim 64 or 128 already
+   ran through it, and its launches there are counted) at GPT-2 Large's
+   (4, 1,024, 20, 64) and at (2, 1,000, 32 q / 8 kv heads, 128): the
+   output and the three gradients no further from an f32 attention than
+   ``attention_dense`` at bf16 is (relative norm, 10 % room), two runs
+   the same bits, three launches a forward and backward; the device time
+   of a forward and backward beside its bound, the plain versions', the
+   dense path's and SDPA's (``library_ms``, never called by the port),
+   and the peak memory each adds.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -272,7 +282,7 @@ TOPOLOGIES = ("gradssharding", "lambda_fl", "lifl")
 NEW_GROUPS = ("sharded_tree", "sharded_tree_equals_lambda_fl", "fault",
               "robust", "geo_tiered", "population")
 SOURCES = ("fedavg_stream", "quantize", "topk_sparsify", "fused_sgd",
-           "rmsnorm")
+           "rmsnorm", "causal_attention")
 LOSSY = ("fp16", "qsgd8", "topk")
 FULL_WIDTH_CODECS = ("qsgd8", "topk")    # the codecs with kernels
 CODEC_ROUNDS = 2         # full-width rounds per topology and codec
@@ -1168,7 +1178,7 @@ def phase_lm_kernels(sgd, rn, layers, models, data, cfg, params):
     return grads, errs
 
 
-def phase_lm_path(fs, sgd, rn, federated_lm, cfg):
+def phase_lm_path(fs, sgd, rn, ca, federated_lm, cfg):
     """(b) two rounds of federated_lm.run at full width on the card."""
     import torch
     checked = []
@@ -1187,11 +1197,12 @@ def phase_lm_path(fs, sgd, rn, federated_lm, cfg):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = 0   # the main path starts here
+    # the main path starts here
+    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = ca.LAUNCHES = 0
     out = federated_lm.run(cfg, device="cuda", on_round=on_round, **LM_RUN)
     torch.cuda.synchronize()
     launches = {"fedavg_stream": fs.LAUNCHES, "fused_sgd": sgd.LAUNCHES,
-                "rmsnorm": rn.LAUNCHES}
+                "rmsnorm": rn.LAUNCHES, "causal_attention": ca.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = LM_RUN["rounds"] * LM_RUN["clients"] * LM_RUN["local_steps"]
     if checked != list(range(LM_RUN["rounds"])):
@@ -2099,7 +2110,7 @@ def phase_serve_f32(models, rn, cfg):
     return {"max_abs_err": err, "rmsnorm_per_step": norms}
 
 
-def phase_serve_loop(serve, models, rn, cfg, peak):
+def phase_serve_loop(serve, models, rn, ca, cfg, peak):
     """12 (3): serve_loop at full width with the reference's defaults, then
     decode steps timed by the host clock, one step under the profiler, and
     the step's bytes bound."""
@@ -2111,10 +2122,10 @@ def phase_serve_loop(serve, models, rn, cfg, peak):
         torch.Generator(device="cuda").manual_seed(SEED + 14), cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rn.LAUNCHES = 0                      # the serving path starts here
+    rn.LAUNCHES = ca.LAUNCHES = 0        # the serving path starts here
     out = serve.serve_loop(cfg, params=params, seed=0, device="cuda", **SERVE)
     torch.cuda.synchronize()
-    launches = rn.LAUNCHES
+    launches, attn_launches = rn.LAUNCHES, ca.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gen = out["generated"]
     if launches != NORMS_PER_FORWARD * SERVE_STEPS:
@@ -2176,7 +2187,8 @@ def phase_serve_loop(serve, models, rn, cfg, peak):
                         ops, key=lambda e: -e.self_cpu_time_total)[:12]]}
     res = {"generated_shape": list(gen.shape), "tokens_per_s":
            out["tokens_per_s"], "loop_wall_s": out["wall_s"],
-           "launches": launches, "peak_memory_gb": peak_gb,
+           "launches": launches, "attention_launches": attn_launches,
+           "peak_memory_gb": peak_gb,
            "step_walls_ms": walls, "step_median_ms": step_ms,
            "step_bytes": nbytes, "step_bound_ms": bound_ms,
            "unstack_host_us": unstack_us,
@@ -2337,7 +2349,7 @@ def _step_bytes(sp, cache, cfg, idx: int, experts=()) -> int:
     return total + b * cfg.vocab * 2
 
 
-def _family_serve(serve, models, moe, rn, cfg, params, peak):
+def _family_serve(serve, models, moe, rn, ca, cfg, params, peak):
     """13 (2): serve_loop in bf16 at the reference's defaults (its rmsnorm
     launches, tokens/s, peak device memory), then decode steps on the cast
     weights timed by the host clock, and one warmed-up step under the
@@ -2347,10 +2359,10 @@ def _family_serve(serve, models, moe, rn, cfg, params, peak):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     norms = models.norms_per_decode_step(cfg)
-    rn.LAUNCHES = 0                      # the serving path starts here
+    rn.LAUNCHES = ca.LAUNCHES = 0        # the serving path starts here
     out = serve.serve_loop(cfg, params=params, seed=0, device="cuda", **SERVE)
     torch.cuda.synchronize()
-    launches = rn.LAUNCHES
+    launches, attn_launches = rn.LAUNCHES, ca.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gen = out["generated"]
     # an encoder-decoder's cache build runs the encoder once: two norms a
@@ -2414,14 +2426,15 @@ def _family_serve(serve, models, moe, rn, cfg, params, peak):
         prof_out["idle_share_of_median_step"] = \
             max(0.0, 1.0 - prof_out["device_busy_ms"] / step_ms)
     return {"tokens_per_s": out["tokens_per_s"], "loop_wall_s": out["wall_s"],
-            "launches": launches, "rmsnorm_per_step": norms,
+            "launches": launches, "attention_launches": attn_launches,
+            "rmsnorm_per_step": norms,
             "peak_memory_gb": peak_gb, "step_walls_ms": walls,
             "step_median_ms": step_ms, "step_bytes": nbytes,
             "step_bound_ms": bound_ms, "experts_per_moe_layer": experts,
             "bound_share_of_step": bound_ms / step_ms, "profile": prof_out}
 
 
-def phase_families(serve, models, moe, rn, get_arch, peak, card):
+def phase_families(serve, models, moe, rn, ca, get_arch, peak, card):
     """13: each family at full width (the MoE and VLM archs cut in depth),
     one model at a time, freed before the next."""
     import torch
@@ -2431,7 +2444,7 @@ def phase_families(serve, models, moe, rn, get_arch, peak, card):
         cfg = _family_cfg(get_arch, arch, layers)
         params, err, norms = _family_decode_check(models, rn, cfg)
         torch.cuda.empty_cache()
-        row = _family_serve(serve, models, moe, rn, cfg, params,
+        row = _family_serve(serve, models, moe, rn, ca, cfg, params,
                             peak)
         del params
         torch.cuda.empty_cache()
@@ -3042,7 +3055,7 @@ def _adamw_shard_update(T, mesh, cfg, params, peak, card):
     return {"ms": ms, "bound_ms": bound, "bytes": nbytes, "elems": elems}
 
 
-def _shardmap_steps(T, mesh, cfg, params, batch, sgd, q, rn, card):
+def _shardmap_steps(T, mesh, cfg, params, batch, sgd, q, rn, ca, card):
     """16 (c): the shard_map step at momentum 0 against a plain
     single-device SGD step (rtol 2e-4, atol 2e-5), then its qsgd8 variant;
     every kernel call of both held bit for bit against its plain version
@@ -3064,7 +3077,7 @@ def _shardmap_steps(T, mesh, cfg, params, batch, sgd, q, rn, card):
     if launches != (1, NORMS_PER_FORWARD) or "fused_sgd" not in errs:
         fail(f"16: the shard_map step launched fused_sgd and rmsnorm "
              f"{launches} times, expected (1, {NORMS_PER_FORWARD})")
-    with uncounted(rn):             # the reference step's forward
+    with uncounted(rn, ca):         # the reference step's forward
         err = held_to_single_step(T, cfg, params, batch, new_flat, loss,
                                   SHARDMAP_LR)
     del new_flat
@@ -3171,7 +3184,7 @@ def _host_mesh_round(fs, FederatedSession, card):
             "streaming_round_wall_s": walls["streaming"]}
 
 
-def _moe_local(models, meshctx, rn, get_arch, mesh, card):
+def _moe_local(models, meshctx, rn, ca, get_arch, mesh, card):
     """16 (f): phi3.5-moe at full width, 2 layers, f32: the local
     dispatch under the mesh within 2e-4 of the global dispatch."""
     import torch
@@ -3185,7 +3198,7 @@ def _moe_local(models, meshctx, rn, get_arch, mesh, card):
                          generator=torch.Generator(device="cuda")
                          .manual_seed(1))
     with torch.no_grad():
-        with uncounted(rn):          # the comparison's forward
+        with uncounted(rn, ca):      # the comparison's forward
             glob = models.forward(params, cfg, {"tokens": toks})
         with meshctx.use_mesh(mesh):
             loc = models.forward(params, dataclasses.replace(
@@ -3203,8 +3216,8 @@ def _moe_local(models, meshctx, rn, get_arch, mesh, card):
     return {"max_abs_err": err}
 
 
-def phase_trainer(fs, sgd, q, rn, models, get_arch, FederatedSession, peak,
-                  card):
+def phase_trainer(fs, sgd, q, rn, ca, models, get_arch, FederatedSession,
+                  peak, card):
     """16: the single-program trainer at full width on a one-rank NCCL
     group, the host_mesh engine and the MoE local dispatch. Every launch
     count of the phase is read at its end. The forwards that the path is
@@ -3229,18 +3242,18 @@ def phase_trainer(fs, sgd, q, rn, models, get_arch, FederatedSession, peak,
                              device="cuda").manual_seed(1))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     norm_err = check_trainer_norm(rn, layers, cfg, params, batch)
-    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = 0    # the phase's main path
+    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = ca.LAUNCHES = 0  # main path
     q.QUANTIZE_LAUNCHES = q.DEQUANTIZE_LAUNCHES = 0
     out = {"plans": _plan_steps(T, mesh, cfg, params, batch, rn, card)}
     out["adamw_shard"] = _adamw_shard_update(T, mesh, cfg, params, peak,
                                              card)
     out["shardmap"], errs = _shardmap_steps(T, mesh, cfg, params, batch, sgd,
-                                            q, rn, card)
+                                            q, rn, ca, card)
     del params, batch, toks
     torch.cuda.empty_cache()
     out["train_loop"] = _train_loop_runs(T, get_arch, cfg, mesh, card)
     out["host_mesh"] = _host_mesh_round(fs, FederatedSession, card)
-    out["moe_local"] = _moe_local(models, meshctx, rn, get_arch, mesh,
+    out["moe_local"] = _moe_local(models, meshctx, rn, ca, get_arch, mesh,
                                   card)
     torch.cuda.synchronize()
     launches = {"rmsnorm": rn.LAUNCHES, "fused_sgd": sgd.LAUNCHES,
@@ -3249,6 +3262,7 @@ def phase_trainer(fs, sgd, q, rn, models, get_arch, FederatedSession, peak,
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"16: the trainer path never launched {missing}")
+    launches["causal_attention"] = ca.LAUNCHES
     dist.destroy_process_group()
     out.update({"launches": launches, "max_abs_err": errs,
                 "rmsnorm_max_abs_err": norm_err,
@@ -3285,7 +3299,7 @@ def tp_serve_cfg(get_arch):
                                param_dtype=torch.bfloat16, remat=False)
 
 
-def _tp_model1_bits(serve, models, rn, get_arch, mesh, card):
+def _tp_model1_bits(serve, models, rn, ca, get_arch, mesh, card):
     """17 (a): full-width tinyllama at f32 (f32 cache) through
     make_serve_step on the (1, 1) mesh under the none plan, bit for bit the
     mesh-less step over the serving run's 23 steps, logits and cache."""
@@ -3312,7 +3326,7 @@ def _tp_model1_bits(serve, models, rn, get_arch, mesh, card):
         before = rn.LAUNCHES
         got, caches[0] = on_mesh(params, toks[:, i:i + 1], caches[0])
         per_step.append(rn.LAUNCHES - before)
-        with uncounted(rn):                  # the comparison's step
+        with uncounted(rn, ca):              # the comparison's step
             want, caches[1] = alone(params, toks[:, i:i + 1], caches[1])
         if not bits_equal(got, want):
             fail(f"17: step {i} on the (1, 1) mesh != the mesh-less step "
@@ -3462,7 +3476,7 @@ def _tp_qwen3(serve, models, rn, get_arch, mesh, peak, card):
     return res
 
 
-def phase_tp(serve, models, rn, get_arch, peak, card):
+def phase_tp(serve, models, rn, ca, get_arch, peak, card):
     """17: the tensor-parallel serving path on one card: rmsnorm at
     qwen3-32b's rows (a TP = 4 rank's q/k-norm blocks included) against its
     plain version; then, on a one-rank NCCL group and a (1, 1) ("data",
@@ -3477,16 +3491,17 @@ def phase_tp(serve, models, rn, get_arch, peak, card):
     rows, norm_err = phase_serve_kernels(rn, peak, TP_ROWS, tag="17",
                                          library_rows=TP_LIBRARY_ROWS)
     mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-    rn.LAUNCHES = 0                          # the phase's main path
+    rn.LAUNCHES = ca.LAUNCHES = 0            # the phase's main path
     out = {"rmsnorm_rows": rows,
-           "model1": _tp_model1_bits(serve, models, rn, get_arch, mesh,
+           "model1": _tp_model1_bits(serve, models, rn, ca, get_arch, mesh,
                                      card),
            "qwen3": _tp_qwen3(serve, models, rn, get_arch, mesh, peak, card)}
     launches = rn.LAUNCHES
     if launches == 0:
         fail("17: the TP serving path never launched rmsnorm")
     dist.destroy_process_group()
-    out.update({"launches": {"rmsnorm": launches},
+    out.update({"launches": {"rmsnorm": launches,
+                             "causal_attention": ca.LAUNCHES},
                 "rmsnorm_max_abs_err": norm_err,
                 "seconds": time.perf_counter() - t0})
     print(f"[17] launches on the phase's path: rmsnorm {launches}; "
@@ -3638,7 +3653,8 @@ def phase_split_norm(rn, peak):
     return rows, max_err
 
 
-def _family_model1_bits(serve, models, rn, get_arch, mesh, arch, card):
+def _family_model1_bits(serve, models, rn, ca, get_arch, mesh, arch,
+                         card):
     """18 (b): ``arch`` as registered (full width, full depth), its
     weights cast for serving (bf16), through make_serve_step on the (1, 1)
     mesh under the none plan, bit for bit the mesh-less step over the
@@ -3678,7 +3694,7 @@ def _family_model1_bits(serve, models, rn, get_arch, mesh, arch, card):
         before = rn.LAUNCHES
         got, got_cache = on_mesh(params, toks[:, i:i + 1], got_cache)
         per_step.append(rn.LAUNCHES - before)
-        with uncounted(rn):                  # the comparison's step
+        with uncounted(rn, ca):              # the comparison's step
             want, want_cache = alone(params, toks[:, i:i + 1], want_cache)
         if not bits_equal(got, want):
             fail(f"18: {arch} step {i} on the (1, 1) mesh != the mesh-less "
@@ -3741,7 +3757,7 @@ def family_first_logits(serve, models, cfg, params, mesh, cache_dtype=None):
     return logits
 
 
-def phase_tp_families(serve, models, rn, get_arch, peak, card):
+def phase_tp_families(serve, models, rn, ca, get_arch, peak, card):
     """18: the rmsnorm kernel's split route (Mamba-2's gated norm under
     tensor parallelism) against its plain version and the whole-row kernel;
     then, on a one-rank NCCL group and a (1, 1) ("data", "model") mesh, the
@@ -3757,8 +3773,8 @@ def phase_tp_families(serve, models, rn, get_arch, peak, card):
     split_rows, split_err = phase_split_norm(rn, peak)
     split_launches = rn.SPLIT_LAUNCHES
     mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-    rn.LAUNCHES, rn.SPLIT_LAUNCHES = 0, 0    # the phase's main path
-    models_out = {arch: _family_model1_bits(serve, models, rn, get_arch,
+    rn.LAUNCHES, rn.SPLIT_LAUNCHES, ca.LAUNCHES = 0, 0, 0  # the main path
+    models_out = {arch: _family_model1_bits(serve, models, rn, ca, get_arch,
                                             mesh, arch, card)
                   for arch in TP_FAMILY_ARCHS}
     launches = rn.LAUNCHES
@@ -3771,7 +3787,8 @@ def phase_tp_families(serve, models, rn, get_arch, peak, card):
     out = {"split_rows": split_rows, "split_max_abs_err": split_err,
            "split_launches_checked": split_launches,
            "split_launches": rn.SPLIT_LAUNCHES, "models": models_out,
-           "launches": {"rmsnorm": launches},
+           "launches": {"rmsnorm": launches,
+                        "causal_attention": ca.LAUNCHES},
            "seconds": time.perf_counter() - t0}
     print(f"[18] launches on the phase's path: rmsnorm {launches}, its "
           f"split route {rn.SPLIT_LAUNCHES}; the split route's checks apart "
@@ -3871,12 +3888,13 @@ def timed_sessions(module, FederatedSession, walls: list, seen: list):
         module.FederatedSession = FederatedSession
 
 
-def kernel_counts(fs, q, tk, sgd, rn) -> dict:
+def kernel_counts(fs, q, tk, sgd, rn, ca) -> dict:
     return {"fedavg_stream": fs.LAUNCHES, **codec_launches(q, tk),
-            "fused_sgd": sgd.LAUNCHES, "rmsnorm": rn.LAUNCHES}
+            "fused_sgd": sgd.LAUNCHES, "rmsnorm": rn.LAUNCHES,
+            "causal_attention": ca.LAUNCHES}
 
 
-def phase_examples(examples, fs, q, tk, sgd, rn, models, get_arch,
+def phase_examples(examples, fs, q, tk, sgd, rn, ca, models, get_arch,
                    FederatedSession, card):
     """The reference's seven examples through the port's entry points on
     the card, their self-checks live: quickstart (plain and pipelined
@@ -3895,15 +3913,15 @@ def phase_examples(examples, fs, q, tk, sgd, rn, models, get_arch,
     (quickstart, faulty_round, million_clients, compression_composition,
      elastic_reshard, serve_sharded, train_federated_lm) = examples
     out, per_example = {}, {}
-    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = tk.LAUNCHES = 0
+    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = tk.LAUNCHES = ca.LAUNCHES = 0
     q.QUANTIZE_LAUNCHES = q.DEQUANTIZE_LAUNCHES = 0   # the path starts here
 
     def run(label, fn):
-        before = kernel_counts(fs, q, tk, sgd, rn)
+        before = kernel_counts(fs, q, tk, sgd, rn, ca)
         t0 = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
-        after = kernel_counts(fs, q, tk, sgd, rn)
+        after = kernel_counts(fs, q, tk, sgd, rn, ca)
         per_example[label] = {k: after[k] - before[k] for k in after
                               if after[k] != before[k]}
         per_example[label]["seconds"] = time.perf_counter() - t0
@@ -4038,7 +4056,7 @@ def phase_examples(examples, fs, q, tk, sgd, rn, models, get_arch,
     print(f"[19] train_federated_lm {LM_ARCH}: losses {losses}, mean "
           f"{means}; launches {per_example['train_federated_lm']}")
 
-    launches = kernel_counts(fs, q, tk, sgd, rn)
+    launches = kernel_counts(fs, q, tk, sgd, rn, ca)
     if any(launches[k] == 0 for k in EX_KERNELS):
         fail(f"a kernel was not launched on the examples' path: {launches}")
     out.update(launches=launches, per_example=per_example, card=card)
@@ -4372,6 +4390,131 @@ def phase_scan(ssm, models, rn, layers, get_arch, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the causal attention kernel
+# ---------------------------------------------------------------------------
+
+#: (label, (B, S, H, KH, D)): GPT-2 Large's training step, and grouped-query
+#: attention at head dim 128 with a ragged last tile
+ATTN_SHAPES = (("gpt2-large", (4, 1024, 20, 20, 64)),
+               ("gqa128", (2, 1000, 32, 8, 128)))
+
+
+def attn_cost(b, s, h, kh, d) -> tuple:
+    """One forward and backward: the train count of operations (3 × QKᵀ
+    and PV over the causal half, recomputation not counted) and the bytes
+    (each input read once, each output written once: q, k, v in and o, m,
+    l out; q, k, v, do, m, l in and dq, dk, dv out)."""
+    qb, kvb, st = b * s * h * d * 2, b * s * kh * d * 2, b * h * s * 4
+    flops = 3.0 * 4.0 * s * s * h * d * 0.5 * b
+    nbytes = (qb + 2 * kvb + qb + 2 * st) + (2 * qb + 2 * kvb + 2 * st
+                                             + qb + 2 * kvb)
+    return flops, nbytes
+
+
+def phase_attention(ca, layers, card) -> dict:
+    """21: the causal attention kernels against ``attention_dense`` at two
+    shapes: the output and the three gradients no further (relative norm)
+    from an f32 attention on the same bf16 values than the dense path at
+    bf16 is, with 10 % room; two runs the same bits; 1 + 2 launches a
+    forward and backward. Then the device time of one forward and
+    backward, its bound, the plain versions' time, the dense path's and
+    SDPA's (``library_ms``, a yardstick the port never calls), and the
+    peak memory a forward and backward adds, kernel against dense."""
+    import torch
+    import torch.nn.functional as F
+    t0 = time.perf_counter()
+    gap = lambda a, b: float((a - b).norm() / b.norm()) if float(
+        b.norm()) > 0 else float((a - b).norm())
+    out = {}
+    for label, (b, s, h, kh, d) in ATTN_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + d)
+        mk = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v, do = mk(b, s, h, d), mk(b, s, kh, d), mk(b, s, kh, d), \
+            mk(b, s, h, d)
+        pos = torch.arange(s, device="cuda")
+        dense = lambda q_, k_, v_: layers.attention_dense(
+            q_, k_, v_, q_pos=pos, k_pos=pos, causal=True)
+
+        def grads(fn, dtype):
+            leaves = [t.detach().clone().to(dtype).requires_grad_()
+                      for t in (q, k, v)]
+            o = fn(*leaves)
+            o.backward(do.to(dtype))
+            return [o.detach().float()] + [t.grad.float() for t in leaves]
+
+        exact = grads(dense, torch.float32)
+        ref = grads(dense, torch.bfloat16)
+        before = ca.LAUNCHES
+        got = grads(ca.causal_attention, torch.bfloat16)
+        again = grads(ca.causal_attention, torch.bfloat16)
+        torch.cuda.synchronize()
+        if ca.LAUNCHES - before != 6:
+            fail(f"21 {label}: {ca.LAUNCHES - before} launches for two "
+                 f"forwards and backwards, not 6")
+        row = {"shape": [b, s, h, kh, d]}
+        for name, g_, r_, e_ in zip(("o", "dq", "dk", "dv"), got, ref,
+                                    exact):
+            row[f"{name}_gap"], row[f"{name}_dense_gap"] = gap(g_, e_), \
+                gap(r_, e_)
+            if row[f"{name}_gap"] > 1.1 * row[f"{name}_dense_gap"] + 1e-7:
+                fail(f"21 {label}: {name} is {row[f'{name}_gap']:.3e} from "
+                     f"f32, the dense path {row[f'{name}_dense_gap']:.3e}")
+        if not all(bits_equal(x, y) for x, y in zip(got, again)):
+            fail(f"21 {label}: two runs differ")
+        del exact, ref, got, again
+        o, m, l = ca.forward(q, k, v)
+        kernel = lambda: (ca.forward(q, k, v), ca.backward(q, k, v, do, m, l))
+        plain = lambda: (ca.forward_plain(q, k, v),
+                         ca.backward_plain(q, k, v, do, m, l))
+        lib = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+
+        def library():
+            F.scaled_dot_product_attention(
+                *lib, is_causal=True, enable_gqa=kh != h).backward(
+                    do.transpose(1, 2))
+
+        def peak_gb(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        flops, nbytes = attn_cost(b, s, h, kh, d)
+        bound = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+        dev = device_ms(kernel, "causal_attention")
+        row.update({
+            "device_ms": dev[0] if dev else None,
+            "kernels_a_call": dev[1] if dev else None,
+            "ms": time_ms(kernel), "bound_ms": bound,
+            "bound_by": "operations" if flops / 989e12 > nbytes / 3.35e12
+            else "bytes",
+            "plain_ms": time_ms(plain),
+            "dense_ms": time_ms(lambda: grads(dense, torch.bfloat16)),
+            "library_ms": time_ms(library),
+            "peak_gb": peak_gb(lambda: grads(ca.causal_attention,
+                                             torch.bfloat16)),
+            "dense_peak_gb": peak_gb(lambda: grads(dense, torch.bfloat16))})
+        row["share"] = bound / row["device_ms"] if dev else None
+        print(f"[21] {label} {tuple(row['shape'])}: gaps to f32 (kernel / "
+              f"dense) " + ", ".join(
+                  f"{n} {row[n + '_gap']:.3e} / {row[n + '_dense_gap']:.3e}"
+                  for n in ("o", "dq", "dk", "dv"))
+              + f"; device {row['device_ms']} ms, events {row['ms']:.3f}, "
+              f"bound {bound:.4f} ({row['bound_by']}), plain "
+              f"{row['plain_ms']:.2f}, dense {row['dense_ms']:.2f}, SDPA "
+              f"{row['library_ms']:.3f}; peak {row['peak_gb']:.2f} GB "
+              f"against {row['dense_peak_gb']:.2f} ({card})")
+        out[label] = row
+        del q, k, v, do, o, m, l, lib
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -4388,6 +4531,7 @@ def main() -> None:
     from repro_torch.kernels import topk_sparsify as tk
     from repro_torch.kernels import fused_sgd as sgd
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import causal_attention as ca
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import federated_lm, serve
@@ -4436,7 +4580,7 @@ def main() -> None:
                                          lm_cfg, lm_params)
     del lm_params
     trained, lm_launches, lm_means, lm_walls, lm_peak = phase_lm_path(
-        fs, sgd, rn, federated_lm, lm_cfg)
+        fs, sgd, rn, ca, federated_lm, lm_cfg)
     lm_rows = phase_lm_timings(sgd, rn, layers, lm_cfg, trained, lm_grads,
                                peaks(name))
     del lm_grads
@@ -4471,7 +4615,7 @@ def main() -> None:
     serve_f32 = phase_serve_f32(models, rn, dataclasses.replace(
         get_arch(LM_ARCH).model, compute_dtype=torch.float32, remat=False))
     torch.cuda.empty_cache()
-    serve_out = phase_serve_loop(serve, models, rn, dataclasses.replace(
+    serve_out = phase_serve_loop(serve, models, rn, ca, dataclasses.replace(
         get_arch(LM_ARCH).model, remat=False), peaks(name))
     torch.cuda.empty_cache()
     serve_archs = phase_serve_archs(models, rn, get_arch)
@@ -4481,7 +4625,7 @@ def main() -> None:
     # phase 13: the other families at full width
     family_norms, family_norm_err = phase_serve_kernels(
         rn, peaks(name), FAMILY_ROWS, tag="13")
-    families = phase_families(serve, models, moe, rn, get_arch,
+    families = phase_families(serve, models, moe, rn, ca, get_arch,
                               peaks(name), card)
     clock.append(("13 families", time.perf_counter()))
     # phase 14: long context
@@ -4492,28 +4636,35 @@ def main() -> None:
     clock.append(("15 federated CNN", time.perf_counter()))
     # phase 16: the single-program trainer
     torch.cuda.empty_cache()
-    trainer = phase_trainer(fs, sgd, q, rn, models, get_arch,
+    trainer = phase_trainer(fs, sgd, q, rn, ca, models, get_arch,
                             FederatedSession, peaks(name), card)
     clock.append(("16 trainer", time.perf_counter()))
     # phase 17: tensor parallelism's serving path
     torch.cuda.empty_cache()
-    tp = phase_tp(serve, models, rn, get_arch, peaks(name), card)
+    tp = phase_tp(serve, models, rn, ca, get_arch, peaks(name), card)
     clock.append(("17 TP serving", time.perf_counter()))
     # phase 18: TP for the SSM, hybrid and encoder-decoder families
     torch.cuda.empty_cache()
-    tpf = phase_tp_families(serve, models, rn, get_arch, peaks(name), card)
+    tpf = phase_tp_families(serve, models, rn, ca, get_arch, peaks(name),
+                            card)
     clock.append(("18 TP families", time.perf_counter()))
     # phase 19: the examples
     torch.cuda.empty_cache()
     ex = phase_examples(
         (quickstart, faulty_round, million_clients, compression_composition,
          elastic_reshard, serve_sharded, train_federated_lm),
-        fs, q, tk, sgd, rn, models, get_arch, FederatedSession, card)
+        fs, q, tk, sgd, rn, ca, models, get_arch, FederatedSession, card)
     clock.append(("19 examples", time.perf_counter()))
     # phase 20: Mamba-1's associative scan at training length
     torch.cuda.empty_cache()
     scan = phase_scan(ssm, models, rn, layers, get_arch, card)
     clock.append(("20 Mamba-1 scan", time.perf_counter()))
+    # phase 21: the causal attention kernel, its launches counted apart
+    # from the paths'
+    torch.cuda.empty_cache()
+    ca.LAUNCHES = 0
+    attn = phase_attention(ca, layers, card)
+    clock.append(("21 causal attention", time.perf_counter()))
     phase_s = {label: t - clock[i][1]
                for i, (label, t) in enumerate(clock[1:])}
     print(f"phase seconds ({card}): " + ", ".join(
@@ -4545,6 +4696,7 @@ def main() -> None:
                       "long_context": long_ctx, "federated_cnn": fl_cnn,
                       "trainer": trainer, "tp": tp, "tp_families": tpf,
                       "examples": ex, "mamba1_scan": scan,
+                      "causal_attention": attn,
                       "phase_seconds": phase_s,
                       "card": card}))
     kernels = [{
@@ -4640,6 +4792,30 @@ def main() -> None:
     for row in kernels:                  # phase 19's launches
         row["examples"] = ex["launches"][row["name"]]
         row["launches"] += row["examples"]
+    head = attn["gpt2-large"]
+    # the route takes every bf16 causal self-attention at head dim 64 or
+    # 128: each path's launches, counted from 0 where the path starts
+    attn_paths = {
+        "federated_lm": lm_launches["causal_attention"],
+        "serve": serve_out["attention_launches"],
+        "families": sum(r["attention_launches"] for r in families.values()),
+        "trainer": trainer["launches"]["causal_attention"],
+        "tp": tp["launches"]["causal_attention"],
+        "tp_families": tpf["launches"]["causal_attention"],
+        "examples": ex["launches"]["causal_attention"]}
+    kernels.append({
+        "name": "causal_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/causal_attention.cu",
+        "replaces": None, "launches": sum(attn_paths.values()),
+        "paths": attn_paths, "check_launches": ca.LAUNCHES,
+        "max_gap_over_dense": max(
+            r[f"{n}_gap"] / r[f"{n}_dense_gap"] for r in (
+                attn[label] for label, _ in ATTN_SHAPES)
+            for n in ("o", "dq", "dk", "dv")),
+        **{key: head[key] for key in (
+            "device_ms", "ms", "plain_ms", "bound_ms", "bound_by", "share",
+            "library_ms", "dense_ms")},
+        "equal_plain": False})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,10 @@ probability-value product run in f32 (the reference's einsums ask for an
 f32 result, ``preferred_element_type``; here q, k, the rounded
 probabilities and v are cast to f32 before the product); the loss is
 taken in f32. RMSNorm runs through the hand-written kernel
-(:mod:`repro_torch.kernels.rmsnorm`) on the card; a row cut over the ranks
+(:mod:`repro_torch.kernels.rmsnorm`) on the card, and causal self-attention
+at bf16 with head dim 64 or 128 through the attention kernel
+(:mod:`repro_torch.kernels.causal_attention`, the dense path's function
+with bf16 tensor-core products); a row cut over the ranks
 of the ``model`` axis (Mamba-2's gated norm under tensor parallelism)
 through its split route (:func:`rmsnorm_split`).
 
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import device_agg as _da
+from repro_torch.kernels import causal_attention as _ca
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.launch import partitioning as _pt
 from repro_torch.models import meshctx
@@ -320,7 +324,19 @@ def attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, chunk=0,
     """The reference's dispatch: the 2-D causal tiling for full causal
     self-attention longer than (and a multiple of) ``chunk`` under
     ``causal_skip``; else the chunked path for keys longer than ``chunk``;
-    else the dense path."""
+    else the dense path.
+
+    Where the dense path would run on causal self-attention without a
+    window or padding, and the card's kernel takes the tensors (bf16 on
+    CUDA, head dim 64 or 128, KH dividing H:
+    :func:`repro_torch.kernels.causal_attention.takes`), the kernel
+    computes the dense path's function instead. It masks by index, which
+    is the position mask here: ``q_pos is k_pos`` holds only for
+    self-attention, and every caller builds those positions as
+    ``torch.arange(S)``."""
+    if (causal and not window and k_valid is None and q_pos is k_pos
+            and not (chunk and k.shape[1] > chunk) and _ca.takes(q, k, v)):
+        return _ca.causal_attention(q, k, v)
     full_self = causal and k_valid is None and q.shape[1] == k.shape[1]
     if (causal_skip and full_self and chunk and q.shape[1] > chunk
             and q.shape[1] % chunk == 0):

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions: bit for bit,
 except rmsnorm, whose sum runs in another order than torch.mean's (f32:
-rtol 1e-5 and atol 1e-6; bf16: one ulp).
+rtol 1e-5 and atol 1e-6; bf16: one ulp), and causal attention, whose
+products sum in other orders than the einsums' (no further from an f32
+attention than ``attention_dense`` is, with 10 % room).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernel is built
 with nvcc on first use); they skip elsewhere. The file imports only the
@@ -1156,3 +1158,142 @@ def test_assoc_scan_chunk_on_card_equals_cpu(c):
         grads.append([t.grad.cpu() for t in ts])
     for g, w in zip(grads[1], grads[0]):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the causal attention kernel (csrc/causal_attention.cu)
+# ---------------------------------------------------------------------------
+
+ATTN_SHAPES = {"one_token": (1, 1, 1, 1, 64), "mqa_short": (1, 7, 2, 1, 64),
+               "ragged128": (1, 65, 2, 2, 128), "gqa64": (2, 130, 4, 2, 64),
+               "gpt2_large": (4, 1024, 20, 20, 64),
+               "gqa128_ragged": (2, 1000, 32, 8, 128)}
+
+
+def _attn_inputs(shape, seed=11):
+    b, s, h, kh, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *sh: torch.randn(*sh, generator=g, device="cuda").to(
+        torch.bfloat16)
+    return mk(b, s, h, d), mk(b, s, kh, d), mk(b, s, kh, d), mk(b, s, h, d)
+
+
+def _attn_grads(fn, q, k, v, do, dtype):
+    leaves = [t.detach().clone().to(dtype).requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    out.backward(do.to(dtype))
+    return [out.detach().float()] + [t.grad.float() for t in leaves]
+
+
+def _attn_dense(q, k, v):
+    from repro_torch.models import layers
+    pos = torch.arange(q.shape[1], device=q.device)
+    return layers.attention_dense(q, k, v, q_pos=pos, k_pos=pos, causal=True)
+
+
+def _gap(a, b):
+    n = float(b.norm())
+    return float((a - b).norm()) / n if n > 0 else float((a - b).norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ATTN_SHAPES))
+def test_causal_attention_no_further_from_f32_than_dense_on_card(name):
+    """The kernels' output and three gradients are no further (relative
+    norm) from an f32 attention on the same bf16 values than
+    ``attention_dense`` at bf16 is, with 10 % room: the two round at the
+    same points and sum in other orders. Two runs give the same bits; a
+    forward is one launch and a backward two."""
+    from repro_torch.kernels import causal_attention as ca
+
+    _need_card()
+    q, k, v, do = _attn_inputs(ATTN_SHAPES[name])
+    exact = _attn_grads(_attn_dense, q, k, v, do, torch.float32)
+    dense = _attn_grads(_attn_dense, q, k, v, do, torch.bfloat16)
+    before = ca.LAUNCHES
+    kernel = _attn_grads(ca.causal_attention, q, k, v, do, torch.bfloat16)
+    again = _attn_grads(ca.causal_attention, q, k, v, do, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES == before + 6
+    for got, ref, want in zip(kernel, dense, exact):
+        assert _gap(got, want) <= 1.1 * _gap(ref, want) + 1e-7
+    for a, b in zip(kernel, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ragged128", "gqa64"])
+def test_causal_attention_kernels_match_their_plain_versions_on_card(name):
+    """Each kernel against its plain version on the same inputs: o within
+    1e-3 (relative norm) and one bf16 ulp of its largest value, the row
+    max and sum to f32 round-off, and the gradients from the same m and l
+    within 1e-3 (relative norm): the products sum in other orders, so a
+    sum that cancels near zero may round apart by more than its own
+    ulp."""
+    from repro_torch.kernels import causal_attention as ca
+
+    _need_card()
+    q, k, v, do = _attn_inputs(ATTN_SHAPES[name], seed=12)
+    o, m, l = ca.forward(q, k, v)
+    po, pm, pl = ca.forward_plain(q, k, v)
+    assert _gap(o.float(), po.float()) <= 1e-3
+    assert float((o.float() - po.float()).abs().max()) <= 2 ** -7 * float(
+        po.float().abs().max())
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, pl, rtol=1e-5, atol=0)
+    for got, want in zip(ca.backward(q, k, v, do, m, l),
+                         ca.backward_plain(q, k, v, do, m, l)):
+        assert _gap(got.float(), want.float()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_causal_attention_copies_strided_and_misaligned_views_on_card():
+    """The kernels read contiguous, 16-byte aligned tensors only:
+    ``forward`` raises on a head slice of a packed (B, S, 3, H, D) tensor,
+    and ``causal_attention`` copies such slices and a view 2 bytes off
+    alignment, giving the contiguous inputs' bits."""
+    from repro_torch.kernels import causal_attention as ca
+
+    _need_card()
+    q, k, v, do = _attn_inputs((2, 130, 4, 4, 64), seed=13)
+    want = _attn_grads(ca.causal_attention, q, k, v, do, torch.bfloat16)
+    packed = torch.stack([q, k, v], dim=2)
+    views = [packed[:, :, i] for i in range(3)]
+    assert not views[0].is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.forward(*views)
+    leaves = [t.detach().requires_grad_() for t in views]
+    out = ca.causal_attention(*leaves)
+    out.backward(do)
+    got = [out.float()] + [t.grad.float() for t in leaves]
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    off = flat[1:].view(q.shape)
+    off.copy_(q)
+    assert off.data_ptr() % 16
+    out2 = ca.causal_attention(off, k, v)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(out2.float(), want[0])
+
+
+@pytest.mark.cuda
+def test_layers_attention_routes_bf16_causal_self_attention_on_card():
+    """``layers.attention`` sends bf16 causal self-attention at head dim 64
+    to the kernel (one launch), and f32, windowed and cross attention down
+    the dense path (none)."""
+    from repro_torch.kernels import causal_attention as ca
+    from repro_torch.models import layers
+
+    _need_card()
+    q, k, v, _ = _attn_inputs((2, 64, 4, 2, 64), seed=14)
+    pos = torch.arange(64, device="cuda")
+    before = ca.LAUNCHES
+    out = layers.attention(q, k, v, q_pos=pos, k_pos=pos, causal=True,
+                           chunk=2048)
+    assert ca.LAUNCHES == before + 1
+    assert _gap(out.float(), _attn_dense(q, k, v).float()) <= 1e-2
+    layers.attention(q.float(), k.float(), v.float(), q_pos=pos, k_pos=pos)
+    layers.attention(q, k, v, q_pos=pos, k_pos=pos, window=16)
+    layers.attention(q, k[:, :32], v[:, :32], q_pos=pos,
+                     k_pos=torch.arange(32, device="cuda"))
+    assert ca.LAUNCHES == before + 1
