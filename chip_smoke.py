@@ -248,7 +248,17 @@ Phases, each fatal on failure:
    the same bits, three launches a forward and backward; the device time
    of a forward and backward beside its bound, the plain versions', the
    dense path's and SDPA's (``library_ms``, never called by the port),
-   and the peak memory each adds.
+   and the peak memory each adds;
+22. the RoPE kernel (``kernels.rope``; every phase above rotates q and k
+   through it where x is a contiguous CUDA tensor, and its launches there
+   are counted per path beside the attention kernel's) at GPT-2 Large's
+   (4, 1,024, 20, 64) bf16 and at an f32 decode step (4, 1, 32, 128): the
+   output and gradient bit for bit the plain chain's (``apply_rope_plain``
+   and autograd through it), two launches a forward and backward; the
+   device time, over copies of x and its gradient that outgrow the L2,
+   against the bytes bound, from profiles that recorded every kernel (2
+   a call; the plain chain's as many as one call records), and the
+   plain chain's; the host's time a call for both.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -282,7 +292,7 @@ TOPOLOGIES = ("gradssharding", "lambda_fl", "lifl")
 NEW_GROUPS = ("sharded_tree", "sharded_tree_equals_lambda_fl", "fault",
               "robust", "geo_tiered", "population")
 SOURCES = ("fedavg_stream", "quantize", "topk_sparsify", "fused_sgd",
-           "rmsnorm", "causal_attention")
+           "rmsnorm", "causal_attention", "rope")
 LOSSY = ("fp16", "qsgd8", "topk")
 FULL_WIDTH_CODECS = ("qsgd8", "topk")    # the codecs with kernels
 CODEC_ROUNDS = 2         # full-width rounds per topology and codec
@@ -1181,6 +1191,7 @@ def phase_lm_kernels(sgd, rn, layers, models, data, cfg, params):
 def phase_lm_path(fs, sgd, rn, ca, federated_lm, cfg):
     """(b) two rounds of federated_lm.run at full width on the card."""
     import torch
+    from repro_torch.kernels import rope as rp
     checked = []
 
     def on_round(rnd, res, flats):
@@ -1198,11 +1209,12 @@ def phase_lm_path(fs, sgd, rn, ca, federated_lm, cfg):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # the main path starts here
-    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = ca.LAUNCHES = 0
+    fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = ca.LAUNCHES = rp.LAUNCHES = 0
     out = federated_lm.run(cfg, device="cuda", on_round=on_round, **LM_RUN)
     torch.cuda.synchronize()
     launches = {"fedavg_stream": fs.LAUNCHES, "fused_sgd": sgd.LAUNCHES,
-                "rmsnorm": rn.LAUNCHES, "causal_attention": ca.LAUNCHES}
+                "rmsnorm": rn.LAUNCHES, "causal_attention": ca.LAUNCHES,
+                "rope": rp.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = LM_RUN["rounds"] * LM_RUN["clients"] * LM_RUN["local_steps"]
     if checked != list(range(LM_RUN["rounds"])):
@@ -2116,16 +2128,18 @@ def phase_serve_loop(serve, models, rn, ca, cfg, peak):
     the step's bytes bound."""
     import torch
     from repro_torch.config import ShapeConfig
+    from repro_torch.kernels import rope as rp
     from repro_torch.models import transformer
     bw = peak[0]
     params = models.init_params(
         torch.Generator(device="cuda").manual_seed(SEED + 14), cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rn.LAUNCHES = ca.LAUNCHES = 0        # the serving path starts here
+    rn.LAUNCHES = ca.LAUNCHES = rp.LAUNCHES = 0   # the serving path starts
     out = serve.serve_loop(cfg, params=params, seed=0, device="cuda", **SERVE)
     torch.cuda.synchronize()
     launches, attn_launches = rn.LAUNCHES, ca.LAUNCHES
+    rope_launches = rp.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gen = out["generated"]
     if launches != NORMS_PER_FORWARD * SERVE_STEPS:
@@ -2188,7 +2202,7 @@ def phase_serve_loop(serve, models, rn, ca, cfg, peak):
     res = {"generated_shape": list(gen.shape), "tokens_per_s":
            out["tokens_per_s"], "loop_wall_s": out["wall_s"],
            "launches": launches, "attention_launches": attn_launches,
-           "peak_memory_gb": peak_gb,
+           "rope_launches": rope_launches, "peak_memory_gb": peak_gb,
            "step_walls_ms": walls, "step_median_ms": step_ms,
            "step_bytes": nbytes, "step_bound_ms": bound_ms,
            "unstack_host_us": unstack_us,
@@ -2356,13 +2370,15 @@ def _family_serve(serve, models, moe, rn, ca, cfg, params, peak):
     profiler beside the step's bytes bound."""
     import torch
     from repro_torch.config import ShapeConfig
+    from repro_torch.kernels import rope as rp
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     norms = models.norms_per_decode_step(cfg)
-    rn.LAUNCHES = ca.LAUNCHES = 0        # the serving path starts here
+    rn.LAUNCHES = ca.LAUNCHES = rp.LAUNCHES = 0   # the serving path starts
     out = serve.serve_loop(cfg, params=params, seed=0, device="cuda", **SERVE)
     torch.cuda.synchronize()
     launches, attn_launches = rn.LAUNCHES, ca.LAUNCHES
+    rope_launches = rp.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gen = out["generated"]
     # an encoder-decoder's cache build runs the encoder once: two norms a
@@ -2427,7 +2443,7 @@ def _family_serve(serve, models, moe, rn, ca, cfg, params, peak):
             max(0.0, 1.0 - prof_out["device_busy_ms"] / step_ms)
     return {"tokens_per_s": out["tokens_per_s"], "loop_wall_s": out["wall_s"],
             "launches": launches, "attention_launches": attn_launches,
-            "rmsnorm_per_step": norms,
+            "rope_launches": rope_launches, "rmsnorm_per_step": norms,
             "peak_memory_gb": peak_gb, "step_walls_ms": walls,
             "step_median_ms": step_ms, "step_bytes": nbytes,
             "step_bound_ms": bound_ms, "experts_per_moe_layer": experts,
@@ -3061,6 +3077,7 @@ def _shardmap_steps(T, mesh, cfg, params, batch, sgd, q, rn, ca, card):
     every kernel call of both held bit for bit against its plain version
     at |θ| elements."""
     import torch
+    from repro_torch.kernels import rope as rp
     out = {}
     step, init_v = T.make_shardmap_train_step(cfg, mesh, lr=SHARDMAP_LR,
                                               momentum=0.0)
@@ -3077,7 +3094,7 @@ def _shardmap_steps(T, mesh, cfg, params, batch, sgd, q, rn, ca, card):
     if launches != (1, NORMS_PER_FORWARD) or "fused_sgd" not in errs:
         fail(f"16: the shard_map step launched fused_sgd and rmsnorm "
              f"{launches} times, expected (1, {NORMS_PER_FORWARD})")
-    with uncounted(rn, ca):         # the reference step's forward
+    with uncounted(rn, ca, rp):     # the reference step's forward
         err = held_to_single_step(T, cfg, params, batch, new_flat, loss,
                                   SHARDMAP_LR)
     del new_flat
@@ -3188,6 +3205,7 @@ def _moe_local(models, meshctx, rn, ca, get_arch, mesh, card):
     """16 (f): phi3.5-moe at full width, 2 layers, f32: the local
     dispatch under the mesh within 2e-4 of the global dispatch."""
     import torch
+    from repro_torch.kernels import rope as rp
     cfg = _family_cfg(get_arch, MOE_ARCH, MOE_LAYERS,
                       compute_dtype=torch.float32)
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -3198,7 +3216,7 @@ def _moe_local(models, meshctx, rn, ca, get_arch, mesh, card):
                          generator=torch.Generator(device="cuda")
                          .manual_seed(1))
     with torch.no_grad():
-        with uncounted(rn, ca):      # the comparison's forward
+        with uncounted(rn, ca, rp):  # the comparison's forward
             glob = models.forward(params, cfg, {"tokens": toks})
         with meshctx.use_mesh(mesh):
             loc = models.forward(params, dataclasses.replace(
@@ -3226,6 +3244,7 @@ def phase_trainer(fs, sgd, q, rn, ca, models, get_arch, FederatedSession,
     made before the counts start."""
     import torch
     import torch.distributed as dist
+    from repro_torch.kernels import rope as rp
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import layers, meshctx
@@ -3243,6 +3262,7 @@ def phase_trainer(fs, sgd, q, rn, ca, models, get_arch, FederatedSession,
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     norm_err = check_trainer_norm(rn, layers, cfg, params, batch)
     fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = ca.LAUNCHES = 0  # main path
+    rp.LAUNCHES = 0
     q.QUANTIZE_LAUNCHES = q.DEQUANTIZE_LAUNCHES = 0
     out = {"plans": _plan_steps(T, mesh, cfg, params, batch, rn, card)}
     out["adamw_shard"] = _adamw_shard_update(T, mesh, cfg, params, peak,
@@ -3263,6 +3283,7 @@ def phase_trainer(fs, sgd, q, rn, ca, models, get_arch, FederatedSession,
     if missing:
         fail(f"16: the trainer path never launched {missing}")
     launches["causal_attention"] = ca.LAUNCHES
+    launches["rope"] = rp.LAUNCHES
     dist.destroy_process_group()
     out.update({"launches": launches, "max_abs_err": errs,
                 "rmsnorm_max_abs_err": norm_err,
@@ -3305,6 +3326,7 @@ def _tp_model1_bits(serve, models, rn, ca, get_arch, mesh, card):
     mesh-less step over the serving run's 23 steps, logits and cache."""
     import torch
     from repro_torch.config import ShapeConfig, ShardingPlan
+    from repro_torch.kernels import rope as rp
     cfg = dataclasses.replace(get_arch(LM_ARCH).model,
                               compute_dtype=torch.float32, remat=False)
     b, max_len = SERVE["batch"], SERVE["max_len"]
@@ -3326,7 +3348,7 @@ def _tp_model1_bits(serve, models, rn, ca, get_arch, mesh, card):
         before = rn.LAUNCHES
         got, caches[0] = on_mesh(params, toks[:, i:i + 1], caches[0])
         per_step.append(rn.LAUNCHES - before)
-        with uncounted(rn, ca):              # the comparison's step
+        with uncounted(rn, ca, rp):          # the comparison's step
             want, caches[1] = alone(params, toks[:, i:i + 1], caches[1])
         if not bits_equal(got, want):
             fail(f"17: step {i} on the (1, 1) mesh != the mesh-less step "
@@ -3486,12 +3508,13 @@ def phase_tp(serve, models, rn, ca, get_arch, peak, card):
     the mesh-less steps compared with do not count."""
     import torch
     import torch.distributed as dist
+    from repro_torch.kernels import rope as rp
     from repro_torch.launch.mesh import make_mesh
     t0 = time.perf_counter()
     rows, norm_err = phase_serve_kernels(rn, peak, TP_ROWS, tag="17",
                                          library_rows=TP_LIBRARY_ROWS)
     mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-    rn.LAUNCHES = ca.LAUNCHES = 0            # the phase's main path
+    rn.LAUNCHES = ca.LAUNCHES = rp.LAUNCHES = 0  # the phase's main path
     out = {"rmsnorm_rows": rows,
            "model1": _tp_model1_bits(serve, models, rn, ca, get_arch, mesh,
                                      card),
@@ -3501,7 +3524,8 @@ def phase_tp(serve, models, rn, ca, get_arch, peak, card):
         fail("17: the TP serving path never launched rmsnorm")
     dist.destroy_process_group()
     out.update({"launches": {"rmsnorm": launches,
-                             "causal_attention": ca.LAUNCHES},
+                             "causal_attention": ca.LAUNCHES,
+                             "rope": rp.LAUNCHES},
                 "rmsnorm_max_abs_err": norm_err,
                 "seconds": time.perf_counter() - t0})
     print(f"[17] launches on the phase's path: rmsnorm {launches}; "
@@ -3663,6 +3687,7 @@ def _family_model1_bits(serve, models, rn, ca, get_arch, mesh, arch,
     launches of each step equal to ``norms_per_decode_step``."""
     import torch
     from repro_torch.config import ShapeConfig, ShardingPlan
+    from repro_torch.kernels import rope as rp
     from repro_torch.models import encdec, meshctx
     cfg = dataclasses.replace(get_arch(arch).model, remat=False)
     b, max_len = SERVE["batch"], SERVE["max_len"]
@@ -3694,7 +3719,7 @@ def _family_model1_bits(serve, models, rn, ca, get_arch, mesh, arch,
         before = rn.LAUNCHES
         got, got_cache = on_mesh(params, toks[:, i:i + 1], got_cache)
         per_step.append(rn.LAUNCHES - before)
-        with uncounted(rn, ca):              # the comparison's step
+        with uncounted(rn, ca, rp):          # the comparison's step
             want, want_cache = alone(params, toks[:, i:i + 1], want_cache)
         if not bits_equal(got, want):
             fail(f"18: {arch} step {i} on the (1, 1) mesh != the mesh-less "
@@ -3767,6 +3792,7 @@ def phase_tp_families(serve, models, rn, ca, get_arch, peak, card):
     count. tools/multi_card.py runs the families split over four cards."""
     import torch
     import torch.distributed as dist
+    from repro_torch.kernels import rope as rp
     from repro_torch.launch.mesh import make_mesh
     t0 = time.perf_counter()
     rn.SPLIT_LAUNCHES = 0
@@ -3774,6 +3800,7 @@ def phase_tp_families(serve, models, rn, ca, get_arch, peak, card):
     split_launches = rn.SPLIT_LAUNCHES
     mesh = make_mesh((1, 1), ("data", "model"), "cuda")
     rn.LAUNCHES, rn.SPLIT_LAUNCHES, ca.LAUNCHES = 0, 0, 0  # the main path
+    rp.LAUNCHES = 0
     models_out = {arch: _family_model1_bits(serve, models, rn, ca, get_arch,
                                             mesh, arch, card)
                   for arch in TP_FAMILY_ARCHS}
@@ -3788,7 +3815,8 @@ def phase_tp_families(serve, models, rn, ca, get_arch, peak, card):
            "split_launches_checked": split_launches,
            "split_launches": rn.SPLIT_LAUNCHES, "models": models_out,
            "launches": {"rmsnorm": launches,
-                        "causal_attention": ca.LAUNCHES},
+                        "causal_attention": ca.LAUNCHES,
+                        "rope": rp.LAUNCHES},
            "seconds": time.perf_counter() - t0}
     print(f"[18] launches on the phase's path: rmsnorm {launches}, its "
           f"split route {rn.SPLIT_LAUNCHES}; the split route's checks apart "
@@ -3889,9 +3917,10 @@ def timed_sessions(module, FederatedSession, walls: list, seen: list):
 
 
 def kernel_counts(fs, q, tk, sgd, rn, ca) -> dict:
+    from repro_torch.kernels import rope as rp
     return {"fedavg_stream": fs.LAUNCHES, **codec_launches(q, tk),
             "fused_sgd": sgd.LAUNCHES, "rmsnorm": rn.LAUNCHES,
-            "causal_attention": ca.LAUNCHES}
+            "causal_attention": ca.LAUNCHES, "rope": rp.LAUNCHES}
 
 
 def phase_examples(examples, fs, q, tk, sgd, rn, ca, models, get_arch,
@@ -3910,10 +3939,12 @@ def phase_examples(examples, fs, q, tk, sgd, rn, ca, models, get_arch,
     import numpy as np
     import torch
     from repro_torch.configs import arch_ids
+    from repro_torch.kernels import rope as rp
     (quickstart, faulty_round, million_clients, compression_composition,
      elastic_reshard, serve_sharded, train_federated_lm) = examples
     out, per_example = {}, {}
     fs.LAUNCHES = sgd.LAUNCHES = rn.LAUNCHES = tk.LAUNCHES = ca.LAUNCHES = 0
+    rp.LAUNCHES = 0
     q.QUANTIZE_LAUNCHES = q.DEQUANTIZE_LAUNCHES = 0   # the path starts here
 
     def run(label, fn):
@@ -4515,6 +4546,135 @@ def phase_attention(ca, layers, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the RoPE kernel
+# ---------------------------------------------------------------------------
+
+#: (label, (B, S, H, hd), type, positions): GPT-2 Large's training step's q
+#: (k alike), and a tinyllama-wide f32 decode step at one position
+ROPE_SHAPES = (("gpt2-large", (4, 1024, 20, 64), "bfloat16", "arange"),
+               ("decode128", (4, 1, 32, 128), "float32", "one"))
+#: short spin kernels launched before and after each profiled window: a
+#: full run's profiler left out the first or last 18 kernels of a window
+PAD_LAUNCHES, PAD_CYCLES = 256, 2000
+PROFILE_TRIES = 3
+
+
+def counted_device_ms(fn, tag: str | None, per_call: int | None):
+    """Device time a call of ``fn`` under ``torch.profiler``: the kernels
+    whose name holds ``tag`` (every kernel but the pads when None) over
+    ``PROFILED_CALLS`` calls, between ``PAD_LAUNCHES`` spin kernels on
+    each side, from a profile that recorded exactly ``per_call`` of them a
+    call (None: as many as a profile of one call records). A profile that
+    records another count is taken again; after ``PROFILE_TRIES`` the
+    phase fails. Returns the time and the kernels a call."""
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def profile(calls):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PAD_LAUNCHES):
+                torch.cuda._sleep(PAD_CYCLES)
+            for _ in range(calls):
+                fn()
+            for _ in range(PAD_LAUNCHES):
+                torch.cuda._sleep(PAD_CYCLES)
+            torch.cuda.synchronize()
+        return [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and "spin_kernel" not in e.name
+                and (tag is None or tag in e.name)]
+
+    counts = []
+    for _ in range(PROFILE_TRIES):
+        want = per_call if per_call is not None else len(profile(1))
+        times = profile(PROFILED_CALLS)
+        counts.append((want, len(times)))
+        if want > 0 and len(times) == want * PROFILED_CALLS:
+            return sum(times) / PROFILED_CALLS / 1e3, want
+    fail(f"22: the profiler recorded (kernels a call, kernels of "
+         f"{PROFILED_CALLS} calls) {counts} for {tag or 'the plain chain'}")
+
+
+def phase_rope(rp, layers, card) -> dict:
+    """22: the RoPE kernel through ``layers.apply_rope`` against the plain
+    chain (``apply_rope_plain``) and autograd through it: the output and
+    x's gradient bit for bit, two launches a forward and backward. Then,
+    a forward and backward over copies of x and of its gradient, one pair
+    a call in turn, that together outgrow the L2 (COLD_POOL_BYTES) where
+    x exceeds COLD_BYTES: the kernels' device time from profiles that
+    recorded both kernels of every call, against their bound (one read
+    and one write of x each way); the plain chain's (its table built each
+    call, as the port did before the kernel) from profiles that recorded
+    as many kernels a call as one call does; both by CUDA events, and the
+    host's time a call for both."""
+    import itertools
+
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for label, shape, dtype, kind in ROPE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + shape[-1])
+        mk = lambda: torch.randn(*shape, generator=gen, device="cuda").to(
+            getattr(torch, dtype))
+        x, do = mk().requires_grad_(), mk()
+        pos = (torch.arange(shape[1], device="cuda") if kind == "arange"
+               else torch.tensor([4097], device="cuda"))
+        nbytes = x.numel() * x.element_size()
+        copies = 1 if nbytes <= COLD_BYTES else -(-COLD_POOL_BYTES // nbytes)
+        pool = itertools.cycle(
+            [(x, do)] + [(x.detach().clone().requires_grad_(), do.clone())
+                         for _ in range(copies - 1)])
+
+        def fwd_bwd(rotate, pair=None):
+            x_, do_ = next(pool) if pair is None else pair
+            o = rotate(x_, pos, 10000.0)
+            return o, torch.autograd.grad(o, x_, do_)[0]
+
+        routed = lambda: fwd_bwd(layers.apply_rope)
+        plain = lambda: fwd_bwd(rp.apply_rope_plain)
+        before = rp.LAUNCHES
+        got = fwd_bwd(layers.apply_rope, (x, do))
+        torch.cuda.synchronize()
+        if rp.LAUNCHES - before != 2:
+            fail(f"22 {label}: {rp.LAUNCHES - before} launches for a "
+                 f"forward and backward, not 2")
+        if not all(bits_equal(a.detach(), b.detach()) for a, b in
+                   zip(got, fwd_bwd(rp.apply_rope_plain, (x, do)))):
+            fail(f"22 {label}: the kernel's output or gradient differs from "
+                 f"the plain chain's")
+        bound = 2 * 2 * nbytes / 3.35e12 * 1e3
+        dev, kernels = counted_device_ms(routed, "rope_rotate", 2)
+        plain_dev, plain_kernels = counted_device_ms(plain, None, None)
+        row = {"shape": list(shape), "dtype": dtype, "positions": kind,
+               "timed_copies": copies, "device_ms": dev,
+               "kernels_a_call": kernels, "ms": time_ms(routed),
+               "bound_ms": bound, "bound_by": "bytes",
+               "share": bound / dev, "plain_device_ms": plain_dev,
+               "plain_kernels_a_call": plain_kernels,
+               "plain_ms": time_ms(plain), "host_us": host_us(routed),
+               "plain_host_us": host_us(plain)}
+        where = f"{copies} copies of x and its gradient in turn, from HBM" \
+            if copies > 1 else "one x"
+        print(f"[22] {label} {tuple(shape)} {dtype}: bits equal the plain "
+              f"chain's; device {dev} ms ({kernels} kernels a call, all "
+              f"recorded) over {where}, events {row['ms']:.4f}, bound "
+              f"{bound:.4f} (bytes), share {row['share']}; plain device "
+              f"{plain_dev} ms ({plain_kernels} kernels), events "
+              f"{row['plain_ms']:.4f}; host {row['host_us']:.1f} us a call "
+              f"against {row['plain_host_us']:.1f} ({card})")
+        out[label] = row
+        del x, do, got, pool
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not under {SRC}")
@@ -4532,6 +4692,7 @@ def main() -> None:
     from repro_torch.kernels import fused_sgd as sgd
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import causal_attention as ca
+    from repro_torch.kernels import rope as rp
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import federated_lm, serve
@@ -4665,6 +4826,11 @@ def main() -> None:
     ca.LAUNCHES = 0
     attn = phase_attention(ca, layers, card)
     clock.append(("21 causal attention", time.perf_counter()))
+    # phase 22: the RoPE kernel, its launches counted apart from the paths'
+    torch.cuda.empty_cache()
+    rp.LAUNCHES = 0
+    rope_out = phase_rope(rp, layers, card)
+    clock.append(("22 rope", time.perf_counter()))
     phase_s = {label: t - clock[i][1]
                for i, (label, t) in enumerate(clock[1:])}
     print(f"phase seconds ({card}): " + ", ".join(
@@ -4696,7 +4862,7 @@ def main() -> None:
                       "long_context": long_ctx, "federated_cnn": fl_cnn,
                       "trainer": trainer, "tp": tp, "tp_families": tpf,
                       "examples": ex, "mamba1_scan": scan,
-                      "causal_attention": attn,
+                      "causal_attention": attn, "rope": rope_out,
                       "phase_seconds": phase_s,
                       "card": card}))
     kernels = [{
@@ -4816,6 +4982,27 @@ def main() -> None:
             "device_ms", "ms", "plain_ms", "bound_ms", "bound_by", "share",
             "library_ms", "dense_ms")},
         "equal_plain": False})
+    # the route takes every rotation of a contiguous CUDA tensor at
+    # positions (S,) or (1,): each path's launches, counted from 0 where
+    # the path starts
+    rope_paths = {
+        "federated_lm": lm_launches["rope"],
+        "serve": serve_out["rope_launches"],
+        "families": sum(r["rope_launches"] for r in families.values()),
+        "trainer": trainer["launches"]["rope"],
+        "tp": tp["launches"]["rope"],
+        "tp_families": tpf["launches"]["rope"],
+        "examples": ex["launches"]["rope"]}
+    head = rope_out["gpt2-large"]
+    kernels.append({
+        "name": "rope", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rope.cu",
+        "replaces": None, "launches": sum(rope_paths.values()),
+        "paths": rope_paths, "check_launches": rp.LAUNCHES,
+        **{key: head[key] for key in (
+            "device_ms", "timed_copies", "ms", "plain_ms", "plain_device_ms",
+            "bound_ms", "bound_by", "share", "host_us", "plain_host_us")},
+        "equal_plain": True})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,10 @@ taken in f32. RMSNorm runs through the hand-written kernel
 (:mod:`repro_torch.kernels.rmsnorm`) on the card, and causal self-attention
 at bf16 with head dim 64 or 128 through the attention kernel
 (:mod:`repro_torch.kernels.causal_attention`, the dense path's function
-with bf16 tensor-core products); a row cut over the ranks
-of the ``model`` axis (Mamba-2's gated norm under tensor parallelism)
-through its split route (:func:`rmsnorm_split`).
+with bf16 tensor-core products), RoPE on the card through its kernel
+(:mod:`repro_torch.kernels.rope`, the plain chain's bits); a row cut over
+the ranks of the ``model`` axis (Mamba-2's gated norm under tensor
+parallelism) through its split route (:func:`rmsnorm_split`).
 
 One-token decode runs against a ring-buffer KV cache
 (:func:`decode_attention_block`), with the grouped-query form of
@@ -45,6 +46,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import device_agg as _da
 from repro_torch.kernels import causal_attention as _ca
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import rope as _rope
 from repro_torch.launch import partitioning as _pt
 from repro_torch.models import meshctx
 
@@ -174,22 +176,18 @@ def rmsnorm_split(x: torch.Tensor, gamma: torch.Tensor, eps: float,
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
-
-
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S).
-    Rotates the two halves of each head (the reference's layout)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., None].to(torch.float32) * freqs
-    cos = torch.cos(angles)[..., None, :]
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    Rotates the two halves of each head (the reference's layout).
+
+    Where the card's kernel takes the tensors (a contiguous CUDA x
+    (B, S, H, hd) with an even head dim, positions (S,) or (1,):
+    :func:`repro_torch.kernels.rope.takes`), it rotates in one launch each
+    way, with the same bits; everything else runs the plain chain."""
+    if _rope.takes(x, positions):
+        return _rope.rope(x, positions, theta)
+    return _rope.apply_rope_plain(x, positions, theta)
 
 
 # ---------------------------------------------------------------------------

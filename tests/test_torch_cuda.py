@@ -1297,3 +1297,125 @@ def test_layers_attention_routes_bf16_causal_self_attention_on_card():
     layers.attention(q, k[:, :32], v[:, :32], q_pos=pos,
                      k_pos=torch.arange(32, device="cuda"))
     assert ca.LAUNCHES == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the RoPE kernel (csrc/rope.cu)
+# ---------------------------------------------------------------------------
+
+ROPE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "f16": torch.float16}
+ROPE_INTS = {2: torch.int16, 4: torch.int32}
+
+
+def _rope_same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(ROPE_INTS[a.element_size()]),
+        b.view(ROPE_INTS[b.element_size()]))
+
+
+def _rope_grads(fn, base, view_of, dout):
+    """fn's output and the gradient autograd takes through it, for the
+    view ``view_of(base)`` of a fresh leaf copy of base."""
+    leaf = base.detach().clone().requires_grad_()
+    out = fn(view_of(leaf))
+    out.backward(dout)
+    return out.detach(), view_of(leaf.grad)
+
+
+def _rope_inputs(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda: (4 * torch.randn(*shape, generator=g, device="cuda")).to(
+        dtype)
+    return mk(), mk()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", ["arange", "decode", "one_for_all"])
+@pytest.mark.parametrize("hd", [64, 80, 96, 128, 72])
+@pytest.mark.parametrize("dtype", list(ROPE_DTYPES))
+def test_rope_kernel_bit_equal_plain_on_card(dtype, hd, pos):
+    """``layers.apply_rope`` on the card (one launch forward, one
+    backward) against the plain chain and autograd through it, bit for
+    bit: positions arange(S), one decode position at S = 1, and one
+    position for every row. 72 leaves 16-byte vectors of bf16 and f16 (36
+    values a half, 72 bytes) to the scalar path."""
+    from repro_torch.kernels import rope
+    from repro_torch.models import layers
+
+    _need_card()
+    s = 1 if pos == "decode" else 37
+    x, dout = _rope_inputs((3, s, 5, hd), ROPE_DTYPES[dtype], seed=hd)
+    positions = (torch.arange(s, device="cuda") if pos == "arange"
+                 else torch.tensor([4097], device="cuda"))
+    before = rope.LAUNCHES
+    got = _rope_grads(lambda t: layers.apply_rope(t, positions, 10000.0),
+                      x, lambda t: t, dout)
+    torch.cuda.synchronize()
+    assert rope.LAUNCHES == before + 2
+    want = _rope_grads(lambda t: rope.apply_rope_plain(t, positions,
+                                                       10000.0),
+                       x, lambda t: t, dout)
+    for a, b in zip(got, want):
+        assert _rope_same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_rope_kernel_plain_route_for_views_that_are_not_contiguous_on_card():
+    """A head slice of a packed (B, S, 3, H, hd) tensor and a view whose
+    last dim is strided take the plain chain (no launch); a contiguous
+    view 2 bytes off alignment takes the kernel's scalar path. All give
+    the plain chain's bits. A gradient with stride 0 (``out.sum()``'s) is
+    made contiguous before the backward launch."""
+    from repro_torch.kernels import rope
+    from repro_torch.models import layers
+
+    _need_card()
+    x, dout = _rope_inputs((2, 40, 4, 64), torch.bfloat16, seed=3)
+    positions = torch.arange(40, device="cuda")
+    routed = lambda t: layers.apply_rope(t, positions, 10000.0)
+    plain = lambda t: rope.apply_rope_plain(t, positions, 10000.0)
+    want = _rope_grads(plain, x, lambda t: t, dout)
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)])
+    cases = [(torch.stack([x, x, x], dim=2), lambda t: t[:, :, 1], 0),
+             (torch.stack([x, x], dim=-1), lambda t: t[..., 0], 0),
+             (flat, lambda t: t[1:].view(x.shape), 2)]
+    for base, view_of, launches in cases:
+        before = rope.LAUNCHES
+        got = _rope_grads(routed, base, view_of, dout)
+        torch.cuda.synchronize()
+        assert rope.LAUNCHES - before == launches
+        for a, b in zip(got, want):
+            assert _rope_same_bits(a, b)
+    summed = [_rope_grads(fn, x, lambda t: t, torch.ones_like(x[0, 0, 0, 0]))
+              for fn in (lambda t: routed(t).sum(), lambda t: plain(t).sum())]
+    assert _rope_same_bits(summed[0][1], summed[1][1])
+
+
+@pytest.mark.cuda
+def test_rope_launches_and_tables_of_a_gpt2_shaped_step_on_card():
+    """One local SGD step of a model with GPT-2 Large's 36 layers and
+    64-wide heads (narrow otherwise; bf16 products, no remat): 144 RoPE
+    launches (36 layers × q and k × forward and backward) and one
+    table."""
+    import dataclasses
+    from repro_torch.configs.paper_workloads import GPT2_LARGE_MODEL
+    from repro_torch.core.fedavg import local_sgd_update
+    from repro_torch.kernels import rope
+    from repro_torch.models import registry as models
+
+    _need_card()
+    cfg = dataclasses.replace(GPT2_LARGE_MODEL, d_model=128, n_heads=2,
+                              n_kv_heads=2, d_ff=256, vocab=256, remat=False)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = models.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    launches, builds = rope.LAUNCHES, rope.TABLE_BUILDS
+    _, _, loss = local_sgd_update(lambda p, b: models.loss_fn(p, cfg, b),
+                                  params, batch, lr=0.01, momentum=0.9)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert rope.LAUNCHES - launches == 144
+    assert rope.TABLE_BUILDS - builds == 1
