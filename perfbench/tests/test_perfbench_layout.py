@@ -147,3 +147,20 @@ def test_gpt2_config_is_the_registered_model_with_its_head_tied():
     untied = dict(cfg, tie_word_embeddings=False)
     assert {n: s for n, s, _ in inputs.gpt2_leaves(untied)} \
         == registry.param_shapes(GPT2_LARGE_MODEL)
+
+
+def test_fedlm_mix_is_16_sequences_of_1024_a_local_step():
+    """The real mix's round, read through the driver's own ``work`` on a
+    stand-in (no model built): 4 clients x 2 local steps of 16 x 1,024
+    tokens; both copies of the cell's ``why`` say so."""
+    from types import SimpleNamespace
+    from perfbench.drivers import fedlm_round
+    loaded = spec.load_cell("gpt2-large.fedlm")
+    stand_in = SimpleNamespace(config=loaded["config"],
+                               mix=loaded["traffic"])
+    assert fedlm_round.Driver.work(stand_in)["tokens"] \
+        == 4 * 2 * 16 * 1024 == 131_072
+    entry = next(w for w in BENCH["workloads"]
+                 if w["name"] == "gpt2-large.fedlm")
+    for why in (entry["why"], loaded["cell"]["why"]):
+        assert "16 x 1,024" in why
