@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.api import FederatedSession  # noqa: E402
+from repro_torch.configs import arch_ids, get_arch  # noqa: E402
 from repro_torch import smoke  # noqa: E402
 from repro_torch.kernels import fedavg_stream as fs  # noqa: E402
 from repro_torch.kernels import quantize as q  # noqa: E402
@@ -23,7 +24,8 @@ from repro_torch.kernels import fused_sgd as sgd  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 
 CASES = ["unweighted", "bf16", "weighted_f64", "weighted_f32", "n1",
-         "misaligned", "multi_node"]
+         "misaligned", "multi_node", "misaligned_weighted", "subnormals",
+         "multi_node_f32"]
 
 
 def _need_card():
@@ -38,7 +40,7 @@ def _card_cases():
         for _ in range(n)]
     base = mk(1, 1_000_008)[0]
     w7 = [0.5, 2.0, 1.0, 3.25, 0.125, 1.0, 7.0]
-    return {
+    cases = {
         "unweighted": ([(mk(20, 1_000_003), None)], "f64"),
         "bf16": ([(mk(7, 12_345, torch.bfloat16), None),
                   (mk(7, 12_345, torch.bfloat16), w7)], "f64"),
@@ -50,6 +52,16 @@ def _card_cases():
         "multi_node": ([(mk(3, 5), None), (mk(9, 300_000), w7 + [1.0, 2.0]),
                         (mk(2, 0), None), (mk(20, 33_333), None)], "f64"),
     }
+    mis = [base[k:k + 999_999] for k in (1, 2, 3, 5)]
+    sub = [x * 1e-39 for x in mk(6, 50_000)]
+    cases.update({
+        "misaligned_weighted": ([(mis, None), (mis, w7[:4])], "f64"),
+        "subnormals": ([(sub, None), (sub, w7[:6])], "f64"),
+        # fedavg_multi's form: several stacks, one weighted f32 table
+        "multi_node_f32": ([(mk(5, n), w7[:5]) for n in (1, 1023, 70_001)],
+                           "f32"),
+    })
+    return cases
 
 
 @pytest.mark.cuda
@@ -82,7 +94,8 @@ def test_batched_round_on_card_launches_kernel(topology):
 
 
 CODEC_CASES = ["shard", "short", "misaligned", "zero_tiles", "half_to_even",
-               "nonfinite", "few_tiles", "heavy_tail", "ties"]
+               "nonfinite", "few_tiles", "heavy_tail", "ties", "subnormals",
+               "near_max", "vgg16_shard", "vgg16_whole"]
 
 
 def _codec_input(case):
@@ -110,6 +123,20 @@ def _codec_input(case):
         return torch.tan(torch.pi * (u - 0.5))
     if case == "ties":                  # few distinct magnitudes
         return torch.round(rnd(200_000) * 4)
+    if case == "subnormals":
+        return rnd(3 * 4096 + 5) * 1e-39
+    if case == "near_max":              # |x| in [3e38, 3.4e38], f32's max
+        x = (torch.rand(2 * 4096 + 9, generator=g, device="cuda") * 0.4e38
+             + 3.0e38) * torch.sign(rnd(2 * 4096 + 9))
+        x[5] = torch.finfo(torch.float32).max
+        return x
+    if case in ("vgg16_shard", "vgg16_whole"):
+        # a GradsSharding client's first shard (33.5 M, a ragged last
+        # tile) and the whole gradient λ-FL and LIFL encode (32,715 tiles)
+        from repro_torch.configs.paper_workloads import VGG16
+        from repro_torch.core.sharding import plan_uniform
+        (a, b), = plan_uniform(VGG16.params, 4).segments[0]
+        return rnd(b - a if case == "vgg16_shard" else VGG16.params)
     if case == "zero_tiles":
         x = rnd(4 * 4096 + 17)
         x[4096:3 * 4096] = 0.0
@@ -201,19 +228,72 @@ def test_codec_round_on_card_equals_cpu(topology, codec):
     assert on_card.codec_error == on_cpu.codec_error
 
 
+# each group of benchmarks/expected_smoke.json that the port recomputes on a
+# device (the ``roofline`` group folds on the host: see
+# test_roofline_inputs_hash_on_card), and the function that recomputes it
+PINNED_GROUPS = {
+    "main_path": (smoke.TOPOLOGIES, smoke.main_path_invariants),
+    "codec": (("codec",), smoke.codec_invariants),
+    "sharded_tree": ((smoke.SHARDED_TREE, "sharded_tree_equals_lambda_fl"),
+                     smoke.sharded_tree_invariants),
+    "fault": (("fault",), smoke.fault_invariants),
+    "robust": (("robust",), smoke.robust_invariants),
+    "geo_tiered": (("geo_tiered",), smoke.geo_invariants),
+    "population": (("population",), smoke.population_invariants),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", list(PINNED_GROUPS))
+def test_pinned_smoke_keys_on_card(group):
+    """Every pinned key of the group recomputed on the card equals
+    expected_smoke.json: 168 main-path, 36 codec and 159 sharded_tree,
+    fault, robust, geo_tiered and population keys."""
+    _need_card()
+    groups, invariants = PINNED_GROUPS[group]
+    expected = smoke.expected_invariants(groups=groups)
+    got = invariants("cuda")
+    assert set(got) == set(expected)
+    assert smoke.mismatches(got, expected) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", smoke.CODECS)
+@pytest.mark.parametrize("engine", smoke.ENGINES)
+@pytest.mark.parametrize("topology", smoke.TOPOLOGIES)
+def test_every_engine_at_n12_on_card_equals_cpu(topology, engine, codec):
+    """N = 12, M = 8, pipelined at readahead_k 2 (divisors that are not
+    powers of two, where a reciprocal multiply would show): the round on
+    the card equals the CPU's, hashes included, and so does a lossy
+    codec's codec_error."""
+    _need_card()
+    grads = smoke.readahead_grads("2")
+    kw = dict(topology=topology, n_shards=smoke.N_SHARDS_2, engine=engine,
+              schedule="pipelined", readahead_k=2, upload=smoke.UPLOAD,
+              codec=codec)
+    on_card = FederatedSession(device="cuda", **kw).round(grads)
+    on_cpu = FederatedSession(device="cpu", **kw).round(grads)
+    assert smoke.record(on_card) == smoke.record(on_cpu)
+    if codec != "identity":
+        assert on_card.codec_error == on_cpu.codec_error
+
+
 SGD_CASES = ["f32", "bf16_p", "bf16_g", "bf16_both", "ragged", "misaligned",
              "mixed_offsets", "mixed_offsets_bf16_g", "bf16_p_head",
-             "len1", "len3", "len5", "len5_offset"]
+             "len1", "len3", "len5", "len5_offset", "len1_offset",
+             "len3_offset"]
 # (p, g, v) element offsets of the mixed cases, from a 16-byte aligned start
 SGD_OFFSETS = {"mixed_offsets": (1, 2, 3), "mixed_offsets_bf16_g": (0, 1, 0),
-               "bf16_p_head": (2, 2, 2), "len5_offset": (1, 1, 1)}
+               "bf16_p_head": (2, 2, 2), "len5_offset": (1, 1, 1),
+               "len1_offset": (1, 1, 1), "len3_offset": (1, 1, 1)}
 
 
 def _sgd_inputs(case):
     g = torch.Generator(device="cuda").manual_seed(13)
     rnd = lambda n: torch.randn(n, generator=g, device="cuda")
     n = {"ragged": 1_000_003, "len1": 1, "len3": 3, "len5": 5,
-         "len5_offset": 5, "bf16_p_head": 100_005}.get(case, 65_536)
+         "len5_offset": 5, "len1_offset": 1, "len3_offset": 3,
+         "bf16_p_head": 100_005}.get(case, 65_536)
     p, grad, v = rnd(n), rnd(n), rnd(n)
     if case in ("bf16_p", "bf16_both"):
         p = p.bfloat16()
@@ -293,7 +373,7 @@ def test_rmsnorm_within_tolerance_of_plain_on_card(d, x_dtype, g_dtype):
 
 
 NORM_CASES = ["misaligned", "strided_rows", "d2047_bf16", "d8191_f32",
-              "rows1", "path_shape"]
+              "rows1", "path_shape", "near_max"]
 
 
 def _norm_input(case):
@@ -311,6 +391,11 @@ def _norm_input(case):
         return rnd(33, 8191), rnd(8191).bfloat16()
     if case == "rows1":
         return rnd(1, 2048).bfloat16(), rnd(2048)
+    if case == "near_max":              # sums of squares past f32's max
+        x = rnd(9, 2048).sign() * 3.0e38
+        x[1] = rnd(2048) * 1e17         # large, its sum of squares finite
+        x[2, 7] = torch.finfo(torch.float32).max
+        return x, rnd(2048)
     return rnd(512, 2048).bfloat16(), rnd(2048)
 
 
@@ -635,6 +720,34 @@ def test_population_round_on_card_equals_cpu(topology):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["gradssharding", "geo_tiered"])
+def test_qsgd8_population_round_equals_eager_on_card(topology):
+    """A population round of 64 clients under qsgd8 decodes through the
+    codec kernels and folds through the fold kernel, and equals the eager
+    round over the materialized cohort on the card: the mean bit for bit,
+    codec_error and every accounting field alike."""
+    _need_card()
+    from repro_torch.serverless.population import ClientPopulation
+    pop = ClientPopulation(64, grad_elems=4_096, seed=3)
+    kw = dict(topology=topology, schedule="pipelined", codec="qsgd8",
+              readahead_k=2, device="cuda")
+    launches = lambda: (q.QUANTIZE_LAUNCHES, q.DEQUANTIZE_LAUNCHES,
+                        fs.LAUNCHES)
+    before = launches()
+    lazy = FederatedSession(population=pop, **kw).round()
+    assert all(b > a for a, b in zip(before, launches()))
+    eager = FederatedSession(**kw).round(pop.materialize(0, "cuda"))
+    acct = lambda r: (r.puts, r.gets, r.wall_clock_s, r.phases_s,
+                      sum(x.billed_gb_s for x in r.records),
+                      tuple(int(i) for i in r.arrivals), r.retries,
+                      r.hedges, r.hedge_wins, r.stale_folded)
+    assert acct(lazy) == acct(eager)
+    assert lazy.avg_flat.device.type == "cuda"
+    assert torch.equal(_bits(lazy.avg_flat), _bits(eager.avg_flat))
+    assert lazy.codec_error == eager.codec_error
+
+
+@pytest.mark.cuda
 def test_stale_weighted_round_batched_equals_streaming_on_card(monkeypatch):
     """Three rounds with stale re-entry: the batched engine folds the
     staleness-weighted nodes in the kernel (some weight ≠ 1.0) and equals
@@ -664,9 +777,13 @@ def test_stale_weighted_round_batched_equals_streaming_on_card(monkeypatch):
 # ---------------------------------------------------------------------------
 
 # (batch 4, d_model) of tinyllama, h2o-danube, gpt2-large and qwen2.5 /
-# qwen3; qwen3's q and k norms at batch 4: (4·64, 128) and (4·8, 128)
+# qwen3; qwen3's q and k norms at batch 4: (4·64, 128) and (4·8, 128);
+# whisper, falcon-mamba / phi3.5-moe, dbrx and chameleon (MAX_D); a TP = 4
+# rank's q and k norm blocks of qwen3; the trainer's rows (batch 8 × 128
+# tokens of tinyllama) and falcon-mamba's at train_4k (4,096 × d_model)
 DECODE_ROWS = [(4, 2048), (4, 2560), (4, 1280), (4, 5120), (256, 128),
-               (32, 128)]
+               (32, 128), (4, 384), (4, 4096), (4, 6144), (4, 8192),
+               (64, 128), (8, 128), (1024, 2048), (4096, 4096)]
 
 
 @pytest.mark.cuda
@@ -731,14 +848,20 @@ def test_decode_step_equals_plain_norms_on_card(arch, monkeypatch):
 
 FAMILY_ARCHS = ["whisper-tiny", "phi3.5-moe-42b-a6.6b", "dbrx-132b",
                 "falcon-mamba-7b", "chameleon-34b", "zamba2-2.7b"]
+DENSE_ARCHS = ["tinyllama-1.1b", "h2o-danube-1.8b", "gpt2-large",
+               "qwen2.5-14b", "qwen3-32b"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+@pytest.mark.parametrize("arch", FAMILY_ARCHS + DENSE_ARCHS)
 def test_family_decode_equals_forward_on_card(arch):
     """12 teacher-forced decode steps at f32 on the card against the full
     forward (5e-3; the MoE at capacity_factor 8.0), the rmsnorm kernel's
-    launches a step equal to the config's count of norms."""
+    launches a step equal to the config's count of norms. A sliding
+    window's ring of slots wraps over 14 steps. A dense model's cache
+    holds as many slots as its window (or steps), and where its KV heads
+    are grouped, the grouped decode equals the expanded one (2e-5) over
+    10 steps."""
     _need_card()
     import dataclasses
     from repro_torch.configs import get_arch
@@ -749,24 +872,26 @@ def test_family_decode_equals_forward_on_card(arch):
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=8.0))
+    steps = 14 if cfg.sliding_window else 12
     gen = torch.Generator(device="cuda").manual_seed(5)
     params = models.init_params(gen, cfg)
-    toks = torch.randint(0, cfg.vocab, (2, 12), generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, steps), generator=gen,
+                         device="cuda")
     batch = {"tokens": toks}
     with torch.inference_mode():
         if models.is_encdec(cfg):
             batch["frames"] = torch.randn(
                 (2, cfg.encoder_seq, cfg.frontend_dim or cfg.d_model),
                 generator=gen, device="cuda")
-            cache = encdec.init_cache(cfg, 2, 12, params=params,
+            cache = encdec.init_cache(cfg, 2, steps, params=params,
                                       frames=batch["frames"],
                                       dtype=torch.float32, device="cuda")
         else:
-            cache = models.init_cache(cfg, 2, 12, dtype=torch.float32,
+            cache = models.init_cache(cfg, 2, steps, dtype=torch.float32,
                                       device="cuda")
         full = models.forward(params, cfg, batch)
         outs, per_step = [], []
-        for i in range(12):
+        for i in range(steps):
             before = rn.LAUNCHES
             lg, cache = models.decode_step(params, cfg, toks[:, i:i + 1],
                                            cache)
@@ -774,7 +899,23 @@ def test_family_decode_equals_forward_on_card(arch):
             outs.append(lg[:, 0])
     torch.testing.assert_close(torch.stack(outs, 1), full, rtol=5e-3,
                                atol=5e-3)
-    assert per_step == [models.norms_per_decode_step(cfg)] * 12
+    assert per_step == [models.norms_per_decode_step(cfg)] * steps
+    if arch not in DENSE_ARCHS:
+        return
+    assert cache["k"].shape[2] == (cfg.sliding_window or steps)
+    if cfg.n_kv_heads < cfg.n_heads:
+        grouped = dataclasses.replace(cfg, decode_grouped_attn=True)
+        caches = [models.init_cache(c, 2, 10, torch.float32, "cuda")
+                  for c in (cfg, grouped)]
+        with torch.inference_mode():
+            for i in range(10):
+                l1, caches[0] = models.decode_step(params, cfg,
+                                                   toks[:, i:i + 1],
+                                                   caches[0])
+                l2, caches[1] = models.decode_step(params, grouped,
+                                                   toks[:, i:i + 1],
+                                                   caches[1])
+                torch.testing.assert_close(l2, l1, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -809,17 +950,12 @@ def test_long_context_paths_equal_dense_on_card(arch, monkeypatch):
     torch.testing.assert_close(tiled, dense, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.cuda
-def test_federated_cnn_rounds_on_card(monkeypatch):
-    """Two rounds of the federated CNN (the reference's e2e config) on the
-    card under each topology, batched engine: the same model (1e-4 /
-    1e-5), fused-SGD launched once a leaf a local step, the fold kernel
-    launched. The convolutions run in f32 with cuDNN's deterministic
-    algorithms, so that the three runs train the same client deltas and
-    only the aggregation differs, as on the CPU."""
-    _need_card()
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+def _cnn_rounds(topology, rounds, device):
+    """The reference's e2e loop (``tests/test_fl_e2e.py``: 4 clients, 4
+    shards, 4 local steps at lr 0.05, momentum 0.9, batch 32) on
+    ``device``, batched engine, from the CPU generator's seeded weights:
+    the flat parameters after ``rounds`` rounds, the test accuracy after
+    each, and the fused-SGD and fold launches."""
     from repro_torch.core import aggregation as agg
     from repro_torch.core.fedavg import apply_delta, local_sgd_update, \
         model_delta
@@ -831,34 +967,75 @@ def test_federated_cnn_rounds_on_card(monkeypatch):
     cfg = cnn.CNNConfig(n_classes=4, channels=(8, 16), blocks_per_stage=1,
                         img_size=8)
     data = SyntheticVision(n_classes=4, img_size=8, seed=0, noise=0.4)
-    finals = []
-    for topology in ("gradssharding", "lambda_fl", "lifl"):
-        params = cnn.init_params(torch.Generator(device="cuda").manual_seed(0),
-                                 cfg)
-        store, rt = ObjectStore(), LambdaRuntime()
-        sgd_before, fold_before = sgd.LAUNCHES, fs.LAUNCHES
-        for rnd in range(2):
-            flats, spec = [], None
-            for c in range(4):
-                local = {k: v.clone() for k, v in params.items()}
-                vel = None
-                for step in range(4):
-                    batch = data.batch(c, rnd * 10 + step, 32, device="cuda")
-                    local, vel, _ = local_sgd_update(
-                        lambda p, b: cnn.loss_fn(p, cfg, b), local, batch,
-                        lr=0.05, momentum=0.9, velocity=vel)
-                flat, spec = flatten(model_delta(params, local))
-                flats.append(flat)
-            r = agg.aggregate_round(topology, flats, rnd=rnd, store=store,
-                                    runtime=rt, n_shards=4, codec="identity",
-                                    engine="batched")
-            params = apply_delta(params, unflatten(r.avg_flat, spec))
+    params = {k: v.to(device) for k, v in cnn.init_params(
+        torch.Generator().manual_seed(0), cfg).items()}
+    store, rt = ObjectStore(), LambdaRuntime()
+    sgd_before, fold_before = sgd.LAUNCHES, fs.LAUNCHES
+    accs = []
+    for rnd in range(rounds):
+        flats, spec = [], None
+        for c in range(4):
+            local = {k: v.clone() for k, v in params.items()}
+            vel = None
+            for step in range(4):
+                batch = data.batch(c, rnd * 10 + step, 32, device=device)
+                local, vel, _ = local_sgd_update(
+                    lambda p, b: cnn.loss_fn(p, cfg, b), local, batch,
+                    lr=0.05, momentum=0.9, velocity=vel)
+            flat, spec = flatten(model_delta(params, local))
+            flats.append(flat)
+        r = agg.aggregate_round(topology, flats, rnd=rnd, store=store,
+                                runtime=rt, n_shards=4, codec="identity",
+                                engine="batched")
+        params = apply_delta(params, unflatten(r.avg_flat, spec))
+        with torch.no_grad():
+            _, m = cnn.loss_fn(params, cfg, data.batch(99, 999, 128,
+                                                       device=device))
+        accs.append(float(m["acc"]))
+    if device == "cuda":
         torch.cuda.synchronize()
-        assert sgd.LAUNCHES - sgd_before == len(params) * 4 * 4 * 2
-        assert fs.LAUNCHES > fold_before
-        finals.append(flatten(params)[0])
+    return (flatten(params)[0], accs, sgd.LAUNCHES - sgd_before,
+            fs.LAUNCHES - fold_before)
+
+
+def _cnn_on_card(monkeypatch):
+    """The convolutions in f32 with cuDNN's deterministic algorithms, so
+    that runs train the same client deltas and only the aggregation
+    differs, as on the CPU."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+
+@pytest.mark.cuda
+def test_federated_cnn_rounds_on_card(monkeypatch):
+    """Two rounds of the federated CNN (the reference's e2e config) on the
+    card under each topology, batched engine: the same model (1e-4 /
+    1e-5), fused-SGD launched once a leaf a local step (8 leaves), the
+    fold kernel launched."""
+    _cnn_on_card(monkeypatch)
+    finals = []
+    for topology in smoke.TOPOLOGIES:
+        flat, _, sgd_launches, folds = _cnn_rounds(topology, 2, "cuda")
+        assert sgd_launches == 8 * 4 * 4 * 2
+        assert folds > 0
+        finals.append(flat)
     for other in finals[1:]:
         torch.testing.assert_close(other, finals[0], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_federated_cnn_learns_and_equals_cpu_on_card(monkeypatch):
+    """Six GradsSharding rounds of the federated CNN on the card end above
+    0.5 test accuracy (and not below the first round's by more than
+    0.05), and two rounds on the card equal the same rounds on the CPU
+    (rtol 1e-4, atol 1e-5)."""
+    _cnn_on_card(monkeypatch)
+    _, accs, _, _ = _cnn_rounds("gradssharding", 6, "cuda")
+    assert accs[-1] > 0.5 and accs[-1] >= accs[0] - 0.05, accs
+    on_card = _cnn_rounds("gradssharding", 2, "cuda")[0]
+    on_cpu = _cnn_rounds("gradssharding", 2, "cpu")[0]
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -945,6 +1122,96 @@ def test_host_mesh_round_on_card(topology):
 # Tensor parallelism's serving path at model = 1 on one card
 # ---------------------------------------------------------------------------
 
+def _meshed_against_meshless(cfg, params, batch, max_len, steps, dtype):
+    """make_serve_step on a one-rank NCCL group's (1, 1) mesh, none plan,
+    against the mesh-less step over ``steps`` decode steps, the cache in
+    ``dtype`` (None: serving's bf16): the logits and every cache leaf bit
+    for bit (an encoder-decoder's cross-attention cache built under the
+    mesh from the same frames), the rmsnorm launches of each step equal to
+    the config's count of norms on both, and no launch of the split route
+    (at model = 1 the TP wrappers take no op and no row splits)."""
+    from repro_torch.config import ShapeConfig, ShardingPlan
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import encdec, meshctx
+    from repro_torch.models import registry as models
+
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    try:
+        shape = ShapeConfig("serve", seq_len=max_len, global_batch=batch,
+                            kind="decode")
+        family = encdec if models.is_encdec(cfg) else models
+        kw = {} if dtype is None else {"dtype": dtype}
+        like = family.cache_specs(cfg, batch, max_len, **kw)
+        steps_fns = [serve.make_serve_step(cfg, shape, mesh, like,
+                                           ShardingPlan(grad_sharding="none")),
+                     serve.make_serve_step(cfg, shape, cache_like=like)]
+        frames = torch.randn((batch, cfg.encoder_seq, cfg.frontend_dim
+                              or cfg.d_model), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(2))
+
+        def cache():
+            if family is encdec:
+                return encdec.init_cache(cfg, batch, max_len, params=params,
+                                         frames=frames, device="cuda", **kw)
+            return models.init_cache(cfg, batch, max_len, device="cuda",
+                                     **kw)
+
+        with meshctx.use_mesh(mesh):
+            caches = [cache()]
+        caches.append(cache())
+        toks = torch.randint(0, cfg.vocab, (batch, steps), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(1))
+        split_before = rn.SPLIT_LAUNCHES
+        for i in range(steps):
+            outs, launches = [], []
+            for j, step in enumerate(steps_fns):
+                before = rn.LAUNCHES
+                logits, caches[j] = step(params, toks[:, i:i + 1], caches[j])
+                launches.append(rn.LAUNCHES - before)
+                outs.append(logits)
+            assert launches[0] == launches[1] == \
+                models.norms_per_decode_step(cfg)
+            assert torch.equal(outs[0], outs[1]), f"step {i}"
+        assert rn.SPLIT_LAUNCHES == split_before
+
+        def leaves(tree, prefix=""):
+            for k, v in sorted(tree.items()):
+                if isinstance(v, dict):
+                    yield from leaves(v, prefix + k + ".")
+                else:
+                    yield prefix + k, v
+
+        for (ka, x), (kb, y) in zip(leaves(caches[0]), leaves(caches[1])):
+            assert ka == kb and torch.equal(x, y), ka
+        assert int(caches[0]["idx"]) == steps
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _model1_case(arch, width, dtype):
+    """``arch``'s config at ``width`` (``smoke`` or ``model``), remat off,
+    its compute type ``dtype`` (None: as registered), and its parameters
+    from a seeded generator on the card, cast for serving when ``dtype``
+    is None."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import registry as models
+
+    over = {} if dtype is None else {"compute_dtype": dtype}
+    cfg = dataclasses.replace(getattr(get_arch(arch), width), remat=False,
+                              **over)
+    params = models.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    if dtype is None:
+        params = serve.cast_for_serving(params, cfg)
+    return cfg, params
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-32b",
                                   "phi3.5-moe-42b-a6.6b"])
@@ -953,43 +1220,19 @@ def test_model1_serve_step_is_the_meshless_step_on_card(arch):
     at the smoke config (f32 compute, f32 cache): 12 decode steps equal
     the mesh-less step bit for bit (logits and cache), and launch rmsnorm
     as often (the TP wrappers take no op at model = 1)."""
-    import dataclasses
-
-    from repro_torch.config import ShapeConfig, ShardingPlan
-    from repro_torch.configs import get_arch
-    from repro_torch.launch import serve
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import registry as models
-
     _need_card()
-    cfg = dataclasses.replace(get_arch(arch).smoke, remat=False,
-                              compute_dtype=torch.float32)
-    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-    shape = ShapeConfig("serve", seq_len=16, global_batch=2, kind="decode")
-    params = models.init_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg)
-    like = models.cache_specs(cfg, 2, 16, torch.float32)
-    steps = [serve.make_serve_step(cfg, shape, mesh, like,
-                                   ShardingPlan(grad_sharding="none")),
-             serve.make_serve_step(cfg, shape, cache_like=like)]
-    caches = [models.init_cache(cfg, 2, 16, torch.float32, "cuda")
-              for _ in steps]
-    toks = torch.randint(0, cfg.vocab, (2, 12), device="cuda",
-                         generator=torch.Generator(device="cuda")
-                         .manual_seed(1))
-    for i in range(12):
-        outs, launches = [], []
-        for j, step in enumerate(steps):
-            before = rn.LAUNCHES
-            logits, caches[j] = step(params, toks[:, i:i + 1], caches[j])
-            launches.append(rn.LAUNCHES - before)
-            outs.append(logits)
-        assert launches[0] == launches[1] == \
-            models.norms_per_decode_step(cfg)
-        assert torch.equal(outs[0], outs[1])
-    for key in ("idx", "k", "v"):
-        assert torch.equal(caches[0][key], caches[1][key])
-    torch.distributed.destroy_process_group()
+    cfg, params = _model1_case(arch, "smoke", torch.float32)
+    _meshed_against_meshless(cfg, params, 2, 16, 12, torch.float32)
+
+
+@pytest.mark.cuda
+def test_full_width_model1_serve_step_is_the_meshless_step_on_card():
+    """tinyllama-1.1b at full width (1.1 B parameters, f32 compute, f32
+    cache) on the (1, 1) mesh: serving's 23 steps at batch 4 equal the
+    mesh-less step bit for bit, 45 rmsnorm launches a step."""
+    _need_card()
+    cfg, params = _model1_case("tinyllama-1.1b", "model", torch.float32)
+    _meshed_against_meshless(cfg, params, 4, 64, 23, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -1062,67 +1305,21 @@ def test_family_model1_serve_step_is_the_meshless_step_on_card(arch):
     mesh from the same frames): 12 decode steps equal the mesh-less step
     bit for bit (logits and every cache leaf), with as many rmsnorm
     launches and no split-route launch (model = 1 splits nothing)."""
-    import dataclasses
-
-    from repro_torch.config import ShapeConfig, ShardingPlan
-    from repro_torch.configs import get_arch
-    from repro_torch.launch import serve
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import encdec, meshctx
-    from repro_torch.models import registry as models
-
     _need_card()
-    cfg = dataclasses.replace(get_arch(arch).smoke, remat=False,
-                              compute_dtype=torch.float32)
-    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-    shape = ShapeConfig("serve", seq_len=16, global_batch=2, kind="decode")
-    params = models.init_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg)
-    family = encdec if models.is_encdec(cfg) else models
-    like = family.cache_specs(cfg, 2, 16, torch.float32)
-    steps = [serve.make_serve_step(cfg, shape, mesh, like,
-                                   ShardingPlan(grad_sharding="none")),
-             serve.make_serve_step(cfg, shape, cache_like=like)]
-    frames = torch.randn((2, cfg.encoder_seq, cfg.frontend_dim or
-                          cfg.d_model), device="cuda",
-                         generator=torch.Generator(device="cuda")
-                         .manual_seed(2))
+    cfg, params = _model1_case(arch, "smoke", torch.float32)
+    _meshed_against_meshless(cfg, params, 2, 16, 12, torch.float32)
 
-    def cache():
-        if family is encdec:
-            return encdec.init_cache(cfg, 2, 16, params=params, frames=frames,
-                                     dtype=torch.float32, device="cuda")
-        return models.init_cache(cfg, 2, 16, torch.float32, "cuda")
 
-    with meshctx.use_mesh(mesh):
-        caches = [cache()]
-    caches.append(cache())
-    toks = torch.randint(0, cfg.vocab, (2, 12), device="cuda",
-                         generator=torch.Generator(device="cuda")
-                         .manual_seed(1))
-    split_before = rn.SPLIT_LAUNCHES
-    for i in range(12):
-        outs, launches = [], []
-        for j, step in enumerate(steps):
-            before = rn.LAUNCHES
-            logits, caches[j] = step(params, toks[:, i:i + 1], caches[j])
-            launches.append(rn.LAUNCHES - before)
-            outs.append(logits)
-        assert launches[0] == launches[1] == \
-            models.norms_per_decode_step(cfg)
-        assert torch.equal(outs[0], outs[1])
-    assert rn.SPLIT_LAUNCHES == split_before
-
-    def leaves(tree, prefix=""):
-        for k, v in sorted(tree.items()):
-            if isinstance(v, dict):
-                yield from leaves(v, prefix + k + ".")
-            else:
-                yield prefix + k, v
-
-    for (ka, a), (kb, b) in zip(leaves(caches[0]), leaves(caches[1])):
-        assert ka == kb and torch.equal(a, b), ka
-    torch.distributed.destroy_process_group()
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b",
+                                  "whisper-tiny"])
+def test_serving_model1_step_is_the_meshless_step_on_card(arch):
+    """The same families as served: the parameters cast for serving, bf16
+    compute and cache, serving's 23 steps at batch 4 on the (1, 1) mesh
+    equal the mesh-less step bit for bit, every cache leaf included."""
+    _need_card()
+    cfg, params = _model1_case(arch, "smoke", None)
+    _meshed_against_meshless(cfg, params, 4, 64, 23, None)
 
 
 @pytest.mark.cuda
@@ -1419,3 +1616,93 @@ def test_rope_launches_and_tables_of_a_gpt2_shaped_step_on_card():
     assert torch.isfinite(loss)
     assert rope.LAUNCHES - launches == 144
     assert rope.TABLE_BUILDS - builds == 1
+
+
+# ---------------------------------------------------------------------------
+# the examples through their entry points on the card
+# ---------------------------------------------------------------------------
+
+# (example, extra arguments, (kernel module, counter) the run must launch)
+EXAMPLE_RUNS = {
+    "quickstart": ("quickstart", [], (fs, "LAUNCHES")),
+    "quickstart_qsgd8": ("quickstart", ["--schedule", "pipelined",
+                                        "--readahead-k", "4", "--codec",
+                                        "qsgd8"], (q, "QUANTIZE_LAUNCHES")),
+    "faulty_round": ("faulty_round", [], None),
+    "faulty_round_stale_hedge": ("faulty_round", [
+        "--staleness-policy", "polynomial", "--hedge", "2"], None),
+    "compression_composition": ("compression_composition", [],
+                                (tk, "LAUNCHES")),
+}
+
+
+def _same_output(got, want, path=""):
+    """Two examples' returned values alike in every key: arrays of the same
+    dtype, shape and bits, numbers exactly (NaN as NaN)."""
+    import math
+
+    import numpy as np
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _same_output(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype and got.shape == want.shape \
+            and got.tobytes() == want.tobytes(), path
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_output(a, b, f"{path}[{i}]")
+    elif not (isinstance(want, float) and math.isnan(want)
+              and math.isnan(got)):
+        assert got == want, f"{path}: {got!r} != {want!r}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", list(EXAMPLE_RUNS))
+def test_example_on_card_equals_cpu(run):
+    """quickstart (at the reference's constants, plain and pipelined
+    qsgd8), faulty_round (plain and stale/hedged) and
+    compression_composition through their ``main`` with ``--device
+    cuda``, their self-checks live: every value they return (means, puts,
+    gets, billed GB-s, peak memory, walls, costs, arrivals, drops,
+    retries, codec_error) equals the CPU's, bit for bit, and the run
+    reaches its kernel."""
+    import importlib
+    _need_card()
+    name, extra, counter = EXAMPLE_RUNS[run]
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    before = None if counter is None else getattr(*counter)
+    got = module.main(extra + ["--device", "cuda"])
+    if counter is not None:
+        assert getattr(*counter) > before
+    _same_output(got, module.main(extra + ["--device", "cpu"]))
+
+
+@pytest.mark.cuda
+def test_elastic_reshard_example_on_card():
+    """elastic_reshard on the card: its self-checks (the model restored bit
+    for bit after resharding) hold."""
+    from repro_torch.examples import elastic_reshard
+    _need_card()
+    out = elastic_reshard.main(["--device", "cuda"])
+    assert out["resumed_shard_sizes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", arch_ids())
+def test_serve_sharded_example_on_card(arch):
+    """serve_sharded for each registered arch on the card (its smoke
+    config): 24 new tokens for 4 prompts, the rmsnorm kernel launched
+    once a norm a decode step (and once a norm of an encoder's one run)."""
+    from repro_torch.examples import serve_sharded
+    from repro_torch.models import registry as models
+    _need_card()
+    cfg = get_arch(arch).smoke
+    steps = 8 + 24 - 1                   # prompt_len + new tokens - 1
+    encoder = 2 * cfg.encoder_layers + 1 if models.is_encdec(cfg) else 0
+    before = rn.LAUNCHES
+    got = serve_sharded.main(["--arch", arch, "--device", "cuda"])
+    assert rn.LAUNCHES - before == \
+        models.norms_per_decode_step(cfg) * steps + encoder
+    assert got["generated"].shape == (4, 24)

@@ -17,12 +17,14 @@ call on its table kernel (``fedavg_fold_launch``, the table built and
 copied to the card once, outside the timing). Each case runs at the main
 path's shape, is held against the plain PyTorch version on both sides
 (bit for bit, rmsnorm to one bf16 ulp), then timed by device time per call
-under ``torch.profiler``, in turns (baseline, repo, repo, baseline), beside
-a ``copy_`` of the case's input as the card's floor for one pass of that
-size, or beside the one PyTorch call that computes the same function
-(``torch.optim.SGD(fused=True).step()`` for fused_sgd, ``torch.sum`` over
-the chunk for fedavg_carry). The last line is a JSON object of the
-readings, in µs.
+(``chip_smoke.counted_device_ms``: the case's kernels by name, from
+profiles that recorded each of them; the repo's kernels a call are known,
+a baseline's are as many as a profile of one call records), in turns
+(baseline, repo, repo, baseline), beside a ``copy_`` of the case's input
+as the card's floor for one pass of that size, or beside the one PyTorch
+call that computes the same function (``torch.optim.SGD(fused=True)
+.step()`` for fused_sgd, ``torch.sum`` over the chunk for fedavg_carry).
+The last line is a JSON object of the readings, in µs.
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+
+from chip_smoke import counted_device_ms  # noqa: E402
 
 SHARD = 33_500_000       # one VGG-16 shard: 134 M f32 / 4
 TOPK_K = 128
@@ -41,34 +45,15 @@ ROWS, D = 512, 2048      # the trainer's norm: batch 8 x sequence 64, d_model
 LM_ARCH = "tinyllama-1.1b"
 LR, MOMENTUM = 0.05, 0.9  # the trainer's full-width lr and momentum
 CHUNK, ELEMS = 512, 4096  # a population chunk: 512 rows of 4,096 elements
-CALLS = 50               # profiled calls a reading
 KERNELS = ("topk_sparsify", "quantize", "dequantize", "rmsnorm", "fused_sgd",
            "fedavg_carry")
-
-
-def device_us(fn) -> tuple[float, float]:
-    """Device time per call of ``fn``, every kernel it launches, over
-    CALLS calls under the profiler, and the kernels a call; a profile
-    that recorded nothing is taken again, twice at most."""
-    import torch
-    from torch.autograd import DeviceType
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(CALLS):
-                fn()
-            torch.cuda.synchronize()
-        # a user annotation (an optimizer's step range) is listed as a
-        # device activity spanning its kernels: not a kernel of its own
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)]
-        if times:
-            return sum(times) / CALLS, len(times) / CALLS
-    raise RuntimeError("the profiler recorded no device activity")
+#: each case's kernels by name in the profile (``fedavg_``: the carry
+#: kernel, or the table kernel of a source without the carry route)
+TAGS = {"topk_sparsify": "::topk_kernel", "quantize": "::quantize_kernel",
+        "dequantize": "::dequantize_kernel", "rmsnorm": "rmsnorm_kernel",
+        "fused_sgd": "fused_sgd", "fedavg_carry": "fedavg_"}
+#: the repo's kernels a call of each case (every other case: one)
+KERNELS_A_CALL = {"fused_sgd": 12}
 
 
 def bits(t):
@@ -258,11 +243,14 @@ def main() -> None:
         times = {side: [] for side in sides}
         for side in ("baseline", "repo", "repo", "baseline"):
             use(side)
-            times[side].append(device_us(calls[side])[0])
+            ms, _ = counted_device_ms(
+                calls[side], TAGS[kernel],
+                KERNELS_A_CALL.get(kernel, 1) if side == "repo" else None)
+            times[side].append(ms * 1e3)
         use("repo")
         for name, fn in extras.items():
-            us, kernels_a_call = device_us(fn)
-            times[name] = [us]
+            ms, kernels_a_call = counted_device_ms(fn, None, None)
+            times[name] = [ms * 1e3]
             times[f"{name} kernels a call"] = [kernels_a_call]
         readings["us"][f"{kernel} {label}"] = times
         print(f"{kernel} {label}: {times} us", flush=True)

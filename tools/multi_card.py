@@ -46,7 +46,7 @@ What it checks and measures (each check fatal):
    weights, an f32 cache) within rtol = atol = 2e-4 of the whole model's on
    one card
    (rank 0's, after the split one is freed), and in bf16 their distance
-   from one card's bf16 logits (``chip_smoke.py``'s phase 17 computation)
+   from one card's bf16 logits (``chip_smoke.py``'s phase 12 computation)
    beside one card's own bf16-to-f32 distance: a bf16 step rounds every
    product, so two bf16 orders of the same sums differ by that much;
 5. the SSM, hybrid and encoder-decoder families split over ``model``:
@@ -65,8 +65,9 @@ What it checks and measures (each check fatal):
    losses within 1e-5, parameters within rtol 5e-4 / atol 1e-4, each
    rank's peak device memory and the step's host wall.
 
-The checks and their tolerances are ``chip_smoke.py``'s own (its phase 16
-and 17 helpers, imported), so one card and several hold the trainer and
+The checks and their tolerances are ``chip_smoke.py``'s own (its phase 11
+and 12 helpers, imported), and so is the reading of launch counts
+(``chip_smoke.launches``), so one card and several hold the trainer and
 the server alike.
 
 The last line is a JSON object of the results; the same object goes to
@@ -111,13 +112,12 @@ def host_mesh_round(args) -> dict:
     import torch
     from repro_torch.api import FederatedSession
     from repro_torch.configs.paper_workloads import VGG16
-    from repro_torch.kernels import fedavg_stream as fs
 
     length = 40_003 if args.smoke else VGG16.params
     gen = torch.Generator(device=args.device).manual_seed(cs.SEED)
     grads = [torch.randn(length, generator=gen, device=args.device)
              for _ in range(cs.N_CLIENTS)]
-    out = cs.host_mesh_vs_streaming(fs, FederatedSession, grads, args.ranks,
+    out = cs.host_mesh_vs_streaming(FederatedSession, grads, args.ranks,
                                     args.device, rounds=TIMED_STEPS,
                                     warm_up=True, where="multi_card [1]")
     want = cs.N_SHARDS * args.ranks if args.device == "cuda" else 0
@@ -235,11 +235,10 @@ def trainer(rank, args, dev, barrier_sync) -> dict:
     # batch, its fused-SGD call held against the plain version
     step, init_v = T.make_shardmap_train_step(cfg, mesh, lr=cs.SHARDMAP_LR,
                                               momentum=0.0)
-    launches = sgd.LAUNCHES
     with cs.HeldAgainstPlain(sgd, q, where=f"multi_card rank {rank}") \
-            as held:
+            as held, cs.launches() as grew:
         new, v, loss = step(params, init_v(params), batch)
-    launches = sgd.LAUNCHES - launches
+    launches = grew.get("fused_sgd", 0)
     shard = v.numel()
     del v
     held.check()
@@ -351,7 +350,6 @@ def tp_serve(rank, args, dev, barrier_sync) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import meshctx
     from repro_torch.models import registry as models
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.config import ShapeConfig
 
     cfg = cs.tp_serve_cfg(get_arch)
@@ -362,17 +360,17 @@ def tp_serve(rank, args, dev, barrier_sync) -> dict:
     mesh = make_mesh((1, args.ranks), ("data", "model"), args.device)
     where = f"multi_card [4] rank {rank}"
     _peak_reset(dev)
-    seed = cs.SEED + 19                  # phase 17's weights
+    seed = cs.SEED + 19                  # phase 12's weights
     t0 = time.perf_counter()
     params = parts.init_local_params(
         torch.Generator(device=dev).manual_seed(seed), cfg, mesh)
     _sync(dev)
     init_s = time.perf_counter() - t0
     held = sum(t.numel() * t.element_size() for t in params.values())
-    before = rn.LAUNCHES
-    loop = serve.serve_loop(cfg, params=params, seed=0, device=dev.type,
-                            mesh=mesh, **cs.SERVE)
-    launches = rn.LAUNCHES - before
+    with cs.launches() as grew:
+        loop = serve.serve_loop(cfg, params=params, seed=0, device=dev.type,
+                                mesh=mesh, **cs.SERVE)
+    launches = grew.get("rmsnorm", 0)
     norms = models.norms_per_decode_step(cfg) * cs.SERVE_STEPS
     if launches != (norms if dev.type == "cuda" else 0):
         fail(f"{where}: serve_loop launched rmsnorm {launches} times, "
@@ -480,7 +478,6 @@ def tp_family_serve(rank, args, dev, barrier_sync) -> dict:
     (2, M/2); then rank 0 alone serves the whole model's first step."""
     import torch
     from repro_torch.config import ShapeConfig
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch import partitioning as parts
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_mesh
@@ -509,11 +506,12 @@ def tp_family_serve(rank, args, dev, barrier_sync) -> dict:
                 torch.Generator(device=dev).manual_seed(seed), cfg, mesh)
             held = sum(t.numel() * t.element_size() for t in params.values())
             gated = _gated_norms(cfg, mesh)
-            before, split_before = rn.LAUNCHES, rn.SPLIT_LAUNCHES
-            loop = serve.serve_loop(cfg, params=params, seed=0,
-                                    device=dev.type, mesh=mesh, **cs.SERVE)
-            launches = rn.LAUNCHES - before
-            split = rn.SPLIT_LAUNCHES - split_before
+            with cs.launches() as grew:
+                loop = serve.serve_loop(cfg, params=params, seed=0,
+                                        device=dev.type, mesh=mesh,
+                                        **cs.SERVE)
+            launches = grew.get("rmsnorm", 0)
+            split = grew.get("rmsnorm_split", 0)
             norms = (models.norms_per_decode_step(cfg) - gated) \
                 * cs.SERVE_STEPS + enc_norms
             want_split = 2 * gated * cs.SERVE_STEPS
